@@ -1,0 +1,102 @@
+"""Scene-mode renderer: occupancy-grid march, fixed sample budget, composite.
+
+Counterpart of ``envidr_tpu/render/scene.py:render_scene`` for the options
+this slice reaches (no background net, no secondary-ray gradients, no
+per-sample loss auxiliaries, no stratified jitter, no geometry-only mode).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from envidr_tpu_torch.geometry.rays import near_far_from_aabb
+from envidr_tpu_torch.models.network import NeRFNetwork, _safe_normalize
+from envidr_tpu_torch.ops.compositing import alphas_from_sigmas, weights_from_alphas
+from envidr_tpu_torch.ops.marching import march_rays
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneRenderOptions:
+    max_steps: int = 1024
+    num_samples: int = 128          # K: per-ray sample budget
+    early_stop_steps: int = -1
+    dt_gamma: float = 0.0
+    T_thresh: float = 1e-4
+    density_scale: float = 1.0
+    min_near: float = 0.2
+    grid_size: int = 128
+    perturb: bool = False
+    training: bool = False
+    need_normals: bool = True
+
+
+def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Tensor,
+                 rays_o: torch.Tensor, rays_d: torch.Tensor, bg_color,
+                 aabb: torch.Tensor, *, noise: Optional[torch.Tensor] = None,
+                 level_mask: Optional[torch.Tensor] = None,
+                 normal_anneal_ratio: float = 1.0, beta_cap=None,
+                 beta_min=None) -> Dict[str, Any]:
+    """Render N rays.  ``noise`` [N] in [0, 1) perturbs the march start (used
+    only when ``opts.perturb``); ``bg_color`` is a scalar, [3] or [N, 3]."""
+    cfg = net.cfg
+    N, K = rays_o.shape[0], opts.num_samples
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)
+    bg = torch.as_tensor(bg_color, dtype=rays_o.dtype, device=rays_o.device)
+    bg = bg.expand(N, 3)
+
+    m = march_rays(rays_o, rays_d, nears, fars, bitfield, bound=cfg.bound,
+                   grid_size=opts.grid_size, dt_gamma=opts.dt_gamma,
+                   max_steps=opts.max_steps, num_samples=K,
+                   early_stop_steps=opts.early_stop_steps,
+                   noise=noise if opts.perturb else None)
+    xyzs, dts = m.xyzs, m.dts
+    dirs = rays_d[:, None, :].expand_as(xyzs)
+
+    # the color MLPs need normals whenever a normal-derived feature is on
+    need_normals = opts.need_normals or cfg.normal_with_mlp or cfg.use_reflected_dir \
+        or cfg.use_n_dot_viewdir or cfg.diffuse_with_env
+    geo, normals, sdf_gradients = net.geometry_with_normals(
+        xyzs, level_mask, need_normals=need_normals,
+        normal_anneal_ratio=normal_anneal_ratio, create_graph=opts.training)
+    sdfs = geo["sdf"]
+    roughness = geo["roughness"]
+    if roughness is None:
+        roughness = torch.full_like(sdfs[..., None], cfg.default_roughness)
+
+    sigmas = net.sdf_to_sigma(sdfs, beta_cap=beta_cap, beta_min=beta_min)
+    zero = torch.zeros((), device=sigmas.device)
+    sigmas = torch.where(m.mask, opts.density_scale * sigmas, zero)
+    weights = weights_from_alphas(alphas_from_sigmas(sigmas, dts), T_thresh=opts.T_thresh)
+    weights = torch.where(m.mask, weights, zero)
+    weights_sum = weights.sum(dim=-1)
+    depth = (weights * m.z_vals).sum(dim=-1)
+    depth = (depth + nears) * (depth != 0.0)
+
+    results: Dict[str, Any] = {"weights_sum": weights_sum, "depth": depth,
+                               "sigmas": sigmas, "sdfs": sdfs, "counts": m.counts,
+                               "mask": m.mask}
+    if sdf_gradients is not None:
+        results["sdf_gradients"] = torch.where(m.mask[..., None], sdf_gradients, zero)
+        results["weights"] = weights
+
+    normals_enc, w_r_enc, n_dot_w_o, n_env_enc = net.get_color_mlp_extra_params(
+        normals, dirs, roughness)
+    rgbs, aux = net.forward_color(geo["geo_feat"], dirs, normals_enc, w_r_enc,
+                                  n_dot_w_o, n_env_enc=n_env_enc)
+    w3 = weights[..., None]
+    results["image"] = (w3 * rgbs).sum(dim=-2) + (1.0 - weights_sum[..., None]) * bg
+    if normals is not None:
+        # smooth normalisation: background rays composite to an exactly-zero
+        # normal, where the hard max-guard's backward is 0/0
+        results["normal_image"] = _safe_normalize((w3 * normals.detach()).sum(dim=-2))
+    if cfg.use_diffuse and not cfg.diffuse_only:
+        results["diffuse_image"] = ((w3 * aux["c_diffuse"]).sum(dim=-2)
+                                    + (1.0 - weights_sum[..., None]) * bg)
+        results["specular_image"] = ((w3 * aux["c_specular"]).sum(dim=-2)
+                                     + (1.0 - weights_sum[..., None]) * bg)
+    results["roughness_image"] = (w3 * roughness).sum(dim=-2)
+    results["roughness"] = roughness
+    return results

@@ -1,0 +1,91 @@
+"""Shared set-up of the PyTorch-port parity tests (this module holds no tests):
+the same small model in both packages, with parameters drawn once and handed
+over as numpy."""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import jax
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SYNTH_INI = os.path.join(ROOT, "configs", "synth_spheres.ini")
+
+# synth_spheres.ini cut to test size: 4 levels, 2^12 table rows, width-16 MLPs
+SMALL = dict(num_levels=4, log2_hashmap_size=12, desired_resolution=64,
+             hidden_dim=16, hidden_dim_color=16, hidden_dim_env=16, num_rays=64,
+             hash_scatter_impl="mixed", hash_custom_grad="on")
+
+
+def small_options(**extra):
+    """(JAX Options, port Options) of the small synth_spheres config."""
+    from envidr_tpu.config import load_options as jax_load
+    from envidr_tpu_torch.config import load_options as torch_load
+    kw = {**SMALL, **extra}
+    return jax_load(SYNTH_INI, **kw), torch_load(SYNTH_INI, **kw)
+
+
+def shared_model(seed: int = 0, **extra):
+    """JAX (cfg, params as numpy) and the port's (cfg, net) with equal weights.
+
+    The hash table is redrawn U(-0.1, 0.1) so that encodings and their
+    gradients are far from zero."""
+    from envidr_tpu.config import network_config as jax_netcfg
+    from envidr_tpu.models.network import init_network_params
+    from envidr_tpu_torch.config import network_config as torch_netcfg
+    from envidr_tpu_torch.io.jax_params import load_jax_params
+    from envidr_tpu_torch.models.network import NeRFNetwork
+
+    jopt, topt = small_options(**extra)
+    jcfg, tcfg = jax_netcfg(jopt), torch_netcfg(topt)
+    params = jax.tree.map(np.asarray, init_network_params(jax.random.PRNGKey(seed), jcfg))
+    rng = np.random.default_rng(seed)
+    emb = params["encoder"]["embeddings"]
+    params["encoder"]["embeddings"] = rng.uniform(-0.1, 0.1, emb.shape).astype(np.float32)
+    net = load_jax_params(NeRFNetwork(tcfg), params)
+    return (jopt, jcfg, params), (topt, tcfg, net)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |a| (the tolerance convention of ROADMAP C-3)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+
+
+def camera_rays(n: int, seed: int = 0):
+    """n rays from around (0, 0, 2.5) towards the central [-0.5, 0.5]^3."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(0.0, 0.1, (n, 3)).astype(np.float32) + np.float32([0.0, 0.0, 2.5])
+    t = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
+    d = t - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return o, d
+
+
+def export_jax_layout(net, grads: bool = False) -> Dict[str, Any]:
+    """The parameters (or their ``.grad``) of ``net`` as a JAX-layout pytree
+    of numpy arrays, e.g. to compare gradients with the JAX package.  A
+    parameter without a gradient reads as zeros, as JAX would return."""
+
+    def val(t):
+        if grads:
+            t = torch.zeros_like(t) if t.grad is None else t.grad
+        return t.detach().cpu().numpy()
+
+    out: Dict[str, Any] = {
+        "encoder": {"embeddings": val(net.encoder.embeddings)},
+        "sdf_density": {"beta": val(net.sdf_density.beta)},
+    }
+    for name in ("sdf_net", "diffuse_net", "color_net", "env_net"):
+        if hasattr(net, name):
+            out[name] = []
+            for layer in getattr(net, name):
+                p = {"w": val(layer.weight).T}
+                if layer.bias is not None:
+                    p["b"] = val(layer.bias)
+                out[name].append(p)
+    return out
