@@ -6,18 +6,27 @@ Phases, each printing one flushed line with its numbers and the elapsed
 seconds:
 
   device   card name and power limit (nvidia-smi)
-  build    nvcc build of every kernel of the scene-training path
-  kernels  each kernel against its plain PyTorch version at the shape the
-           train step gives it, with CUDA-event times of the kernel, the plain
-           version and one library call computing the same function
+  build    nvcc build of every kernel source (one nvcc each, all started
+           together), with the seconds of each or "cached"
+  kernels  each kernel against its plain PyTorch version at the shape its
+           path gives it (the train step for scatter_add_rows, the
+           micro-benchmarks' shapes for the others), with CUDA-event times of
+           the kernel, the plain version and, where there is one, a single
+           library call computing the same function, beside the bound
   parity   a small model, one train-step loss and its gradients on the card
            (through the kernels) against the same step on the CPU (plain
            versions)
+  hash     the ``hash`` encoder's forward and first/second-order gradients
+           and the ``sorted`` scatter on the card against the CPU, small size
   train    configs/synth_spheres.ini at full width (rolled_tiled hash grid,
            hash_scatter_impl=mixed, hand-written hash VJP) on the in-memory
            sphere scene: 20 train steps; launch counts are zeroed just before
   render   one 400x400 eval render of a val view, PSNR against the analytic
            ground truth; launch counts are read just after
+  bench    the three micro-benchmarks of envidr_tpu_torch.tools at their full
+           shapes with few iterations (every table row, hash_encode of both
+           indexings included); launch counts are zeroed just before and read
+           just after
 
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit code
@@ -31,13 +40,25 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate (data sheet)
 TRAIN_STEPS = 20
+BENCH_ITERS = 4                    # timed calls per micro-benchmark row
 SCATTER_ATOL = 1e-3                # f32 sums of ~64 unit-normal rows per slot
                                    # (level 0), added in another order
+FEW_ROWS_ATOL = 1e-5               # f32 sums of the few (<= ~8) rows per slot
+                                   # of a 2^19-row table, in another order
+BF16_ACC_RTOL = 2.0**-5            # of max |sum|: bf16 sums of a few rows, each
+                                   # add rounded, in another order; one bf16
+                                   # ulp is <= 2^-7 of a value, so 4 ulps
+HASH_FWD_ATOL = 1e-6               # one f32 product-sum of 8 corners
+HASH_GRAD1_RTOL = 1e-5             # of max: f32 sums over 8 corners x levels
+HASH_GRAD2_RTOL = 1.3e-3           # of max: double backward (ROADMAP C-3)
+SORTED_ATOL = 1e-4                 # cumsum differences (the JAX package's bound)
+BENCH = dict(B=262_144, W=16, S=1 << 19, S_small=4096)   # tools/bench_scatter.py:22-25,87
 PARITY_RTOL = 2e-2                 # of each tensor's max |value|: this f32 step
                                    # is itself only good to ~1e-2 of its max
                                    # (hash-table grads, CPU f32 against f64), so
@@ -49,20 +70,6 @@ def phase(name: str, *words, **numbers):
     print(f"{name}: {fields} elapsed_s={time.perf_counter() - T0:.1f}", flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -70,8 +77,63 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_libraries():
+    """(name, CudaLibrary) of every kernel instantiation, in table order."""
+    import torch
+    from envidr_tpu_torch.ops import gather, scatter
+    return [("scatter_add_rows", scatter.KERNEL),
+            ("gather_rows<f32>", gather.KERNEL),
+            ("gather_rows<round_bf16>", gather.KERNEL_BF16),
+            ("scatter_add_rows<round_bf16>", scatter.KERNEL_BF16),
+            ("scatter_rows_tiled<f32>", scatter.TILED[torch.float32]),
+            ("scatter_rows_tiled<bf16>", scatter.TILED[torch.bfloat16])]
+
+
+def build_all():
+    """One nvcc per source, all started together: {source stem: seconds|None}."""
+    by_source = {lib.source: lib for _, lib in kernel_libraries()}
+    with ThreadPoolExecutor(len(by_source)) as ex:
+        secs = list(ex.map(lambda lib: lib.build(), by_source.values()))
+    return {src.stem: s for src, s in zip(by_source, secs)}
+
+
+def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbytes,
+                 tol):
+    """One kernel against its plain version on the same inputs, then timed
+    (CUDA events, L2 flushed) beside its plain version, the library call
+    (``(name, fn)`` or None) and the bytes bound.  ``tol`` is an absolute
+    tolerance or a callable of the plain result."""
+    import torch
+    from envidr_tpu_torch.tools._timing import cuda_time
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = float((out - ref).abs().max())
+    tol = tol(ref) if callable(tol) else tol
+    if not err <= tol:
+        raise AssertionError(f"{kernel} ({shape}) disagrees with its plain version: "
+                             f"max_abs_err={err} > {tol}")
+    ms = cuda_time(run, 20, 3) * 1e3
+    plain_ms = cuda_time(plain, 20, 3) * 1e3
+    library_ms = None if library is None else cuda_time(library[1], 20, 3) * 1e3
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if ms < bound_ms:
+        raise AssertionError(f"{kernel} ({shape}) timed at {ms} ms, below its bound "
+                             f"{bound_ms} ms: a measuring fault")
+    result = {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+              "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+              "row": row, "shape": shape, "tolerance": tol,
+              "library": None if library is None else library[0]}
+    phase("kernels", f"row {row} {kernel} ok", shape=repr(shape), max_abs_err=err,
+          tol=tol, ms=ms, plain_ms=plain_ms,
+          library_ms="none" if library_ms is None else library_ms,
+          library=repr(result["library"]), bound_ms=bound_ms)
+    return result
+
+
 def check_scatter(spec, B: int, W: int):
-    """scatter_add_rows at the train step's shape: kernel vs plain vs library."""
+    """Row 1, scatter_add_rows at the train step's shape."""
     import numpy as np
     import torch
     from envidr_tpu_torch.ops import scatter
@@ -87,28 +149,129 @@ def check_scatter(spec, B: int, W: int):
     def library():
         return torch.zeros((L * s_max, W), device="cuda").index_add_(0, flat_idx, flat_rows)
 
-    before = scatter.KERNEL.launches
-    out = scatter.scatter_add_rows(idx, rows, s_max)
-    torch.cuda.synchronize()
-    ref = scatter.scatter_add_rows_plain(idx, rows, s_max)
-    err = float((out - ref).abs().max())
-    if not err <= SCATTER_ATOL:
-        raise AssertionError(f"scatter_add_rows disagrees with its plain version: "
-                             f"max_abs_err={err} > {SCATTER_ATOL}")
-    lib_err = float((library().reshape(L, s_max, W) - ref).abs().max())
-    ms = cuda_ms(lambda: scatter.scatter_add_rows(idx, rows, s_max))
-    plain_ms = cuda_ms(lambda: scatter.scatter_add_rows_plain(idx, rows, s_max))
-    library_ms = cuda_ms(library)
-    scatter.KERNEL.launches = before          # comparison launches do not count
-    nbytes = L * B * 4 + L * B * W * 4 + L * s_max * W * 4
-    return {
-        "name": "scatter_add_rows", "route": "cuda",
-        "source": "envidr_tpu_torch/csrc/scatter_add_rows.cu",
-        "replaces": "envidr_tpu/ops/pallas_scatter.py:64",
-        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": library_ms,
-    }, {"library_max_abs_err": lib_err, "shape": f"L={L} B={B} W={W} S_max={s_max}"}
+    return check_kernel(
+        "1", "scatter_add_rows", "envidr_tpu_torch/csrc/scatter_add_rows.cu",
+        "envidr_tpu/ops/pallas_scatter.py:64", f"L={L} B={B} W={W} S_max={s_max}",
+        lambda: scatter.scatter_add_rows(idx, rows, s_max),
+        lambda: scatter.scatter_add_rows_plain(idx, rows, s_max),
+        ("index_add_", library), L * B * 4 + L * B * W * 4 + L * s_max * W * 4,
+        SCATTER_ATOL)
+
+
+def check_bench_kernels():
+    """Rows 2-8, each kernel at the micro-benchmarks' shapes."""
+    import torch
+    from envidr_tpu_torch.ops import gather, scatter
+
+    B, W, S, Ss = BENCH["B"], BENCH["W"], BENCH["S"], BENCH["S_small"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    idx = torch.randint(0, S, (B,), device="cuda", generator=g, dtype=torch.int32)
+    rows = torch.randn(B, W, device="cuda", generator=g)
+    table = torch.randn(S, W, device="cuda", generator=g)
+    idx_s = idx % Ss
+    table_s = table[:Ss].contiguous()
+    gsrc = "envidr_tpu_torch/csrc/gather_rows.cu"
+    ssrc = "envidr_tpu_torch/csrc/scatter_add_rows.cu"
+    tsrc = "envidr_tpu_torch/csrc/scatter_rows_tiled.cu"
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def gather_bytes(i):        # index, the distinct rows it touches, output
+        return B * 4 + torch.unique(i).numel() * W * 4 + B * W * 4
+
+    def scatter_bytes(s):       # index, rows, output
+        return B * 4 + B * W * 4 + s * W * 4
+
+    def index_add(i, s):
+        return ("index_add_", lambda: torch.zeros((s, W), device="cuda").index_add_(0, i, rows))
+
+    out = []
+    for row, line in (("2", 182), ("3", 209)):
+        out.append(check_kernel(
+            row, "gather_rows<f32>", gsrc, f"tools/bench_scatter.py:{line}",
+            f"table [{Ss},{W}] f32, idx [{B}]", lambda: gather.gather_rows(table_s, idx_s),
+            lambda: gather.gather_rows_plain(table_s, idx_s),
+            ("index_select", lambda: table_s.index_select(0, idx_s)),
+            gather_bytes(idx_s), 0.0))
+    out.append(check_kernel(
+        "4", "gather_rows<round_bf16>", gsrc, "tools/bench_scatter.py:249",
+        f"table [{S},{W}] f32, idx [{B}]", lambda: gather.gather_rows(table, idx, True),
+        lambda: gather.gather_rows_plain(table, idx, True), None, gather_bytes(idx), 0.0))
+    out.append(check_kernel(
+        "5", "scatter_add_rows<round_bf16>", ssrc, "tools/bench_scatter.py:287",
+        f"idx [{B}], rows [{B},{W}] -> [{S},{W}]",
+        lambda: scatter.scatter_add_rows(idx[None], rows[None], S, round_bf16=True),
+        lambda: scatter.scatter_add_rows_plain(idx[None], rows[None], S, round_bf16=True),
+        None, scatter_bytes(S), FEW_ROWS_ATOL))
+    out.append(check_kernel(
+        "6", "scatter_rows_tiled<f32>", tsrc, "tools/bench_scatter.py:324",
+        f"idx [{B}], rows [{B},{W}] -> [{Ss},{W}]",
+        lambda: scatter.scatter_rows_tiled(idx_s, rows, Ss),
+        lambda: scatter.scatter_rows_tiled_plain(idx_s, rows, Ss),
+        index_add(idx_s, Ss), scatter_bytes(Ss), SCATTER_ATOL))
+    for s_lvl in (4096, 32768, 131072):
+        i = idx % s_lvl
+        out.append(check_kernel(
+            "7", "scatter_rows_tiled<f32>", tsrc, "tools/bench_scatter2.py:126",
+            f"idx [{B}], rows [{B},{W}] -> [{s_lvl},{W}]",
+            lambda: scatter.scatter_rows_tiled(i, rows, s_lvl),
+            lambda: scatter.scatter_rows_tiled_plain(i, rows, s_lvl),
+            index_add(i, s_lvl), scatter_bytes(s_lvl), SCATTER_ATOL))
+    for acc, name in ((f32, "scatter_rows_tiled<f32>"), (bf16, "scatter_rows_tiled<bf16>")):
+        out.append(check_kernel(
+            "8", name, tsrc, "tools/bench_gs4.py:51",
+            f"idx [{B}], rows [{B},{W}] -> [{S},{W}], {str(acc)[6:]} accumulator",
+            lambda: scatter.scatter_rows_tiled(idx, rows, S, acc),
+            lambda: scatter.scatter_rows_tiled_plain(idx, rows, S, acc),
+            index_add(idx, S) if acc == f32 else None, scatter_bytes(S),
+            FEW_ROWS_ATOL if acc == f32
+            else (lambda ref: BF16_ACC_RTOL * float(ref.abs().max()))))
+    return out
+
+
+def check_hash():
+    """The hash encoder (forward, first and second order, the row indices)
+    and the sorted scatter: card against CPU at a small size."""
+    import torch
+    from envidr_tpu_torch.ops import hashgrid as hg
+
+    spec = hg.HashGridSpec(num_levels=6, level_dim=2, base_resolution=8,
+                           desired_resolution=2048, log2_hashmap_size=14, indexing="hash")
+    gen = torch.Generator().manual_seed(5)
+    emb = torch.rand(spec.table_size, 2, generator=gen) * 0.2 - 0.1
+    x = torch.rand(4096, 3, generator=gen)
+    proj = torch.randn(spec.output_dim, generator=gen)
+    results = []
+    for dev in ("cpu", "cuda"):
+        e = emb.to(dev).requires_grad_(True)
+        xx = x.to(dev).requires_grad_(True)
+        out = hg.hash_encode(xx, e, spec)
+        g1 = torch.autograd.grad((out ** 2).sum(), (e, xx))
+        f = (hg.hash_encode(xx, e, spec) @ proj.to(dev)).sum()
+        (gx,) = torch.autograd.grad(f, xx, create_graph=True)
+        g2 = torch.autograd.grad(((gx.norm(dim=-1) - 1.0) ** 2).sum(), (e, xx))
+        idx = hg.hash_grid_indices(spec, x.to(dev))
+        results.append([t.detach().cpu() for t in (out, *g1, *g2, idx)])
+    (o0, a0, b0, c0, d0, i0), (o1, a1, b1, c1, d1, i1) = results
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+
+    errs = {"fwd": float((o0 - o1).abs().max()), "d_emb": rel(a0, a1), "d_x": rel(b0, b1),
+            "eik_d_emb": rel(c0, c1), "eik_d_x": rel(d0, d1)}
+    tols = {"fwd": HASH_FWD_ATOL, "d_emb": HASH_GRAD1_RTOL, "d_x": HASH_GRAD1_RTOL,
+            "eik_d_emb": HASH_GRAD2_RTOL, "eik_d_x": HASH_GRAD2_RTOL}
+    bad = [k for k in errs if not errs[k] <= tols[k]]
+    if bad or not torch.equal(i0, i1):
+        raise AssertionError(f"hash encoder card vs CPU: {errs} (tolerances {tols}), "
+                             f"indices equal {torch.equal(i0, i1)}")
+    sidx = torch.randint(0, 4096, (3, 5000), generator=gen)
+    srows = torch.randn(3, 5000, 16, generator=gen) * 1e-2
+    ref = hg._sorted_segment_rows(sidx, srows, 4096)
+    got = hg._sorted_segment_rows(sidx.cuda(), srows.cuda(), 4096).cpu()
+    errs["sorted"] = float((ref - got).abs().max())
+    if not errs["sorted"] <= SORTED_ATOL:
+        raise AssertionError(f"sorted scatter card vs CPU: {errs['sorted']} > {SORTED_ATOL}")
+    return {**errs, "tolerances": tols, "sorted_tol": SORTED_ATOL, "indices_equal": True}
 
 
 def check_parity():
@@ -165,7 +328,7 @@ def main() -> int:
     import numpy as np
     from envidr_tpu_torch.config import load_options, network_config
     from envidr_tpu_torch.data.synth_scene import SynthSpheres
-    from envidr_tpu_torch.ops import scatter
+    from envidr_tpu_torch.tools import bench_gs4, bench_scatter, bench_scatter2
     from envidr_tpu_torch.train.metrics import psnr
     from envidr_tpu_torch.train.trainer import Trainer
 
@@ -175,28 +338,29 @@ def main() -> int:
     smi = nvidia_smi()
     phase("device", kind=repr(kind), count=torch.cuda.device_count(), nvidia_smi=repr(smi))
 
-    nvcc_s = scatter.KERNEL.build()
-    phase("build", scatter_add_rows="cached" if nvcc_s is None else f"nvcc_s={nvcc_s:.1f}")
+    built = build_all()
+    phase("build", **{k: "cached" if v is None else f"nvcc_s={v:.1f}"
+                      for k, v in built.items()})
 
     opt = load_options(os.path.join(ROOT, "configs", "synth_spheres.ini"),
                        hash_scatter_impl="mixed", hash_custom_grad="on")
     cfg = network_config(opt)
     K0 = opt.early_stop_steps                        # the first epoch's budget
-    row, info = check_scatter(cfg.hash_spec, B=opt.num_rays * K0, W=8 * cfg.level_dim)
-    phase("kernels", "scatter_add_rows ok", max_abs_err=row["max_abs_err"],
-          tol=SCATTER_ATOL, ms=row["ms"], plain_ms=row["plain_ms"],
-          library_ms=row["library_ms"], bound_ms=row["bound_ms"],
-          library_max_abs_err=info["library_max_abs_err"], shape=repr(info["shape"]))
+    rows = [check_scatter(cfg.hash_spec, B=opt.num_rays * K0, W=8 * cfg.level_dim)]
+    rows += check_bench_kernels()
+    libs = dict(kernel_libraries())
 
     par = check_parity()
     phase("parity", **par)
+    phase("hash", **check_hash())
 
     t = time.perf_counter()
     train = SynthSpheres("train", scale=opt.scale)
     val = SynthSpheres("val", scale=opt.scale)
     data_s = time.perf_counter() - t
     trainer = Trainer(opt, cfg)
-    scatter.KERNEL.launches = 0                      # main path starts here
+    for lib in libs.values():                        # main path starts here
+        lib.launches = 0
     torch.cuda.reset_peak_memory_stats()
     trainer.update_extra_state()
     occupied = float(trainer.grid.bitfield.float().mean())
@@ -210,7 +374,7 @@ def main() -> int:
         if not np.isfinite(m["loss"]):
             raise AssertionError(f"step {i + 1}: loss {m['loss']}")
     ms_per_step = float(np.mean(step_ms[3:]))
-    launches_train = scatter.KERNEL.launches
+    launches_train = libs["scatter_add_rows"].launches
     if launches_train < TRAIN_STEPS:
         raise AssertionError(f"scatter_add_rows launched {launches_train} times in "
                              f"{TRAIN_STEPS} steps; expected at least one per step")
@@ -225,7 +389,7 @@ def main() -> int:
     t = time.perf_counter()
     res = trainer.render_image(val.poses[0], val.intrinsics, val.H, val.W)
     render_s = time.perf_counter() - t
-    launches = scatter.KERNEL.launches               # main path ends here
+    train_launches = {k: lib.launches for k, lib in libs.items()}   # main path ends here
     img = res["image"]
     gt = val.images[0].astype(np.float32) / 255.0
     gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
@@ -237,8 +401,20 @@ def main() -> int:
     phase("render", size=f"{val.H}x{val.W}", psnr_db=p, image_std=float(img.std()),
           seconds=render_s, rays_per_s=val.H * val.W / render_s)
 
-    row["launches"] = launches
-    print(json.dumps({"kernels": [row]}), flush=True)
+    for lib in libs.values():                        # the benchmarks' path starts here
+        lib.launches = 0
+    for bench in (bench_scatter, bench_scatter2, bench_gs4):
+        bench.main(["--iters", str(BENCH_ITERS), "--e2e-iters", str(BENCH_ITERS)]
+                   if bench is bench_scatter else ["--iters", str(BENCH_ITERS)])
+    bench_launches = {k: lib.launches for k, lib in libs.items()}   # and ends here
+    unused = [k for k, n in bench_launches.items() if k != "scatter_add_rows" and n == 0]
+    if unused:
+        raise AssertionError(f"the micro-benchmarks launched no {unused}")
+    phase("bench", **{f"launches[{k}]": n for k, n in bench_launches.items()})
+
+    for row in rows:
+        row["launches"] = (train_launches if row["row"] == "1" else bench_launches)[row["name"]]
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -302,7 +302,7 @@ class Options:
     hash_table_dtype: str = "float32"    # 'bfloat16' for half gather bytes
     hash_scatter_impl: str = "xla"       # 'mixed': Pallas VMEM scatter levels;
     # 'sorted': scatter-free sort+cumsum reduction (ops/hashgrid.py).
-    # Both apply to the custom-VJP (rolled_tiled) backward only.
+    # All apply to the custom-VJP (rolled_tiled) backward only.
     # hand-written hash VJP: 'auto' = on for sphere/renv modes (shrinks the
     # second-order remote compile 20-26min -> ~1min), off for scene training
     # (measured 1101ms vs 589ms/step: XLA's autodiff fuses the two same-index

@@ -16,13 +16,25 @@
 // contention is highest on the small dense levels (level 0 has 4096 slots for
 // 262,144 rows); privatising those levels in shared memory is a later step.
 //
+// A second entry point, scatter_add_rows_round_bf16_launch, rounds each row
+// value to bf16 (round-to-nearest-even) before the f32 atomicAdd.  It replaces
+// tools/bench_scatter.py:287 s_pallas_onehot, the micro-benchmark's scatter
+// as onehot^T @ bf16(rows) on the MXU with f32 sums; the one-hot product is
+// not carried over.  The f32 instantiation is the train step's.
+//
 // C interface for ctypes; returns the cudaError_t of the memset and launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <bool ROUND>
 __global__ void scatter_add_rows_kernel(const int32_t* __restrict__ idx,
                                         const float4* __restrict__ rows,
                                         float* __restrict__ out,
@@ -36,7 +48,13 @@ __global__ void scatter_add_rows_kernel(const int32_t* __restrict__ idx,
     const int64_t q = t - row * Wq;     // which float4 of the row
     const int64_t l = row / B;
     const int64_t slot = (int64_t)__ldg(idx + row);
-    const float4 v = __ldg(rows + t);
+    float4 v = __ldg(rows + t);
+    if (ROUND) {
+      v.x = round_bf16(v.x);
+      v.y = round_bf16(v.y);
+      v.z = round_bf16(v.z);
+      v.w = round_bf16(v.w);
+    }
     float* dst = out + ((l * S_max + slot) * Wq + q) * 4;
     atomicAdd(dst + 0, v.x);
     atomicAdd(dst + 1, v.y);
@@ -45,12 +63,9 @@ __global__ void scatter_add_rows_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-}  // namespace
-
-extern "C" int scatter_add_rows_launch(const void* idx, const void* rows,
-                                       void* out, int64_t L, int64_t B,
-                                       int64_t S_max, int64_t W,
-                                       void* stream) {
+template <bool ROUND>
+int launch(const void* idx, const void* rows, void* out, int64_t L, int64_t B,
+           int64_t S_max, int64_t W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(out, 0, (size_t)(L * S_max * W) * sizeof(float), s);
   if (err != cudaSuccess) return (int)err;
@@ -60,8 +75,24 @@ extern "C" int scatter_add_rows_launch(const void* idx, const void* rows,
   const int threads = 256;
   int64_t blocks = (total + threads - 1) / threads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;   // grid-stride beyond this
-  scatter_add_rows_kernel<<<(unsigned)blocks, threads, 0, s>>>(
+  scatter_add_rows_kernel<ROUND><<<(unsigned)blocks, threads, 0, s>>>(
       static_cast<const int32_t*>(idx), static_cast<const float4*>(rows),
       static_cast<float*>(out), L, B, S_max, Wq);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int scatter_add_rows_launch(const void* idx, const void* rows,
+                                       void* out, int64_t L, int64_t B,
+                                       int64_t S_max, int64_t W,
+                                       void* stream) {
+  return launch<false>(idx, rows, out, L, B, S_max, W, stream);
+}
+
+extern "C" int scatter_add_rows_round_bf16_launch(const void* idx, const void* rows,
+                                                  void* out, int64_t L, int64_t B,
+                                                  int64_t S_max, int64_t W,
+                                                  void* stream) {
+  return launch<true>(idx, rows, out, L, B, S_max, W, stream);
 }

@@ -9,11 +9,13 @@ carry the JAX functions' names
 (``forward_geometry``, ``geometry_with_normals``, ``sdf_to_sigma``,
 ``forward_color``, ``get_color_mlp_extra_params``).
 
-Ported for this slice: the ``rolled_tiled`` hash encoder, the Laplace
-density, the frequency/SH/IDE direction encoders, the diffuse, specular and
-environment MLPs.  The CP and ``hash`` encoders, NeuS alpha, numerical
-normals, the background net, sphere mode and the interreflection branch
-raise ``NotImplementedError`` until their slices land.
+Ported so far: the hash encoder (``encoding_pos`` ``rolled_tiled``, and
+``hashgrid`` / ``hashgrid_diff``, which select ``hash`` indexing with linear /
+smoothstep interpolation), the Laplace density, the frequency/SH/IDE
+direction encoders, the diffuse, specular and environment MLPs.  The CP
+encoder, NeuS alpha, numerical normals, the background net, sphere mode and
+the interreflection branch raise ``NotImplementedError`` until their slices
+land.
 """
 
 from __future__ import annotations
@@ -232,7 +234,8 @@ class NetworkConfig:
 def _unported(cfg: NetworkConfig):
     """Names of the options of ``cfg`` this slice does not port yet."""
     checks = {
-        f"encoding_pos={cfg.encoding_pos!r}": cfg.encoding_pos != "rolled_tiled",
+        f"encoding_pos={cfg.encoding_pos!r}": cfg.encoding_pos not in (
+            "rolled_tiled", "hashgrid", "hashgrid_diff"),
         "use_sdf=False": not cfg.use_sdf,
         "use_neus_sdf": cfg.use_neus_sdf,
         "numerical_normals": cfg.numerical_normals,

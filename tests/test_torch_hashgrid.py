@@ -139,7 +139,8 @@ def test_gated_and_ungated_table_grads_agree():
 
 
 def test_unported_indexing_raises():
-    _, ts = _specs(indexing="hash")
+    """'hash' and 'rolled_tiled' are ported; any other indexing raises."""
+    _, ts = _specs(indexing="tiled")
     emb, x = _inputs(ts)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="indexing"):
         thg.hash_encode(torch.from_numpy(x), torch.from_numpy(emb), ts)

@@ -89,3 +89,76 @@ def export_jax_layout(net, grads: bool = False) -> Dict[str, Any]:
                     p["b"] = val(layer.bias)
                 out[name].append(p)
     return out
+
+
+def load_tool_functions(script: str, names, consts: Dict[str, Any]) -> Dict[str, Any]:
+    """The functions ``names`` of a TPU micro-benchmark under ``tools/``,
+    runnable on the CPU.
+
+    The scripts run their whole benchmark when imported, so the wanted
+    ``def``s are cut out of the source with ``ast`` and executed in a
+    namespace that holds ``consts`` (the scripts' module-level sizes, made
+    small), ``jax``, ``jnp``, ``pltpu`` and a ``pl`` whose ``pallas_call``
+    runs in interpret mode.  Nothing in ``tools/`` changes.
+    """
+    import ast
+    import functools
+    import types
+
+    import jax.numpy as jnp
+    from jax.experimental import pallas as real_pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    path = os.path.join(ROOT, "tools", script)
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    defs = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in names]
+    missing = set(names) - {d.name for d in defs}
+    assert not missing, f"{script} has no {sorted(missing)}"
+    pl = types.SimpleNamespace(**{k: getattr(real_pl, k) for k in dir(real_pl)
+                                  if not k.startswith("_")})
+    pl.pallas_call = functools.partial(real_pl.pallas_call, interpret=True)
+    ns = {"jax": jax, "jnp": jnp, "pl": pl, "pltpu": pltpu, "functools": functools,
+          **consts}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec"), ns)
+    return ns
+
+
+def tool_row_templates(script: str):
+    """Regexes of the row names a TPU micro-benchmark under ``tools/``
+    prints: the first argument of each ``report(...)`` call, or the text
+    before the time of each ``print(f"... {t...} ms")``.  Formatted fields
+    match anything, digits any number (the port names rows by the shapes it
+    runs at), whitespace any whitespace."""
+    import ast
+    import re
+
+    def piece(text):
+        out = ""
+        for tok in re.split(r"(\d+|\s+)", text):
+            if tok.isdigit():
+                out += r"\d+"
+            elif tok and tok.isspace():
+                out += r"\s+"
+            else:
+                out += re.escape(tok)
+        return out
+
+    with open(os.path.join(ROOT, "tools", script)) as f:
+        tree = ast.parse(f.read())
+    templates = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.args):
+            continue
+        arg = node.args[0]
+        if node.func.id == "report":
+            parts = arg.values if isinstance(arg, ast.JoinedStr) else [arg]
+        elif (node.func.id == "print" and isinstance(arg, ast.JoinedStr)
+              and isinstance(arg.values[-1], ast.Constant) and arg.values[-1].value == " ms"):
+            parts = arg.values[:-2]                      # drop the time and " ms"
+        else:
+            continue
+        regex = "".join(piece(p.value) if isinstance(p, ast.Constant) else ".+?"
+                        for p in parts)
+        templates.append(regex.removesuffix(r"\s+"))
+    return templates
