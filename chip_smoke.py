@@ -12,7 +12,8 @@ seconds:
            path gives it (the train step for scatter_add_rows, the
            micro-benchmarks' shapes for the others), with CUDA-event times of
            the kernel, the plain version and, where there is one, a single
-           library call computing the same function, beside the bound
+           library call computing the same function, beside the bound; then
+           readings of the bf16 accumulator's summation-order noise
   parity   a small model, one train-step loss and its gradients on the card
            (through the kernels) against the same step on the CPU (plain
            versions)
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -51,9 +53,11 @@ SCATTER_ATOL = 1e-3                # f32 sums of ~64 unit-normal rows per slot
                                    # (level 0), added in another order
 FEW_ROWS_ATOL = 1e-5               # f32 sums of the few (<= ~8) rows per slot
                                    # of a 2^19-row table, in another order
-BF16_ACC_RTOL = 2.0**-5            # of max |sum|: bf16 sums of a few rows, each
-                                   # add rounded, in another order; one bf16
-                                   # ulp is <= 2^-7 of a value, so 4 ulps
+BF16_ACC_RTOL = 2.0**-5            # of max |sum|: bf16 sums of a few rows in
+                                   # two orders that the atomics choose; the
+                                   # bf16 readings below differ by up to 2
+                                   # ulps of the largest sums, 2^-7 of max |sum|
+                                   # or more, so 2^-5 (4-8 ulps) leaves room
 HASH_FWD_ATOL = 1e-6               # one f32 product-sum of 8 corners
 HASH_GRAD1_RTOL = 1e-5             # of max: f32 sums over 8 corners x levels
 HASH_GRAD2_RTOL = 1.3e-3           # of max: double backward (ROADMAP C-3)
@@ -98,11 +102,13 @@ def build_all():
 
 
 def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbytes,
-                 tol):
+                 tol, bench_rows=None):
     """One kernel against its plain version on the same inputs, then timed
     (CUDA events, L2 flushed) beside its plain version, the library call
     (``(name, fn)`` or None) and the bytes bound.  ``tol`` is an absolute
-    tolerance or a callable of the plain result."""
+    tolerance or a callable of the plain result.  ``bench_rows`` is
+    ``(micro-benchmark, row-name pattern)``: the rows that launch this kernel
+    for this table row."""
     import torch
     from envidr_tpu_torch.tools._timing import cuda_time
     out = run()
@@ -124,7 +130,7 @@ def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbyt
               "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
               "row": row, "shape": shape, "tolerance": tol,
-              "library": None if library is None else library[0]}
+              "library": None if library is None else library[0], "bench_rows": bench_rows}
     phase("kernels", f"row {row} {kernel} ok", shape=repr(shape), max_abs_err=err,
           tol=tol, ms=ms, plain_ms=plain_ms,
           library_ms="none" if library_ms is None else library_ms,
@@ -184,30 +190,37 @@ def check_bench_kernels():
     def index_add(i, s):
         return ("index_add_", lambda: torch.zeros((s, W), device="cuda").index_add_(0, i, rows))
 
+    def named(bench, name):     # one micro-benchmark row, by its exact name
+        return (bench, re.escape(name))
+
     out = []
-    for row, line in (("2", 182), ("3", 209)):
+    for row, line, name in (("2", 182, f"pallas take (VMEM table S={Ss})"),
+                            ("3", 209, f"pallas take_along_axis (S={Ss})")):
         out.append(check_kernel(
             row, "gather_rows<f32>", gsrc, f"tools/bench_scatter.py:{line}",
             f"table [{Ss},{W}] f32, idx [{B}]", lambda: gather.gather_rows(table_s, idx_s),
             lambda: gather.gather_rows_plain(table_s, idx_s),
             ("index_select", lambda: table_s.index_select(0, idx_s)),
-            gather_bytes(idx_s), 0.0))
+            gather_bytes(idx_s), 0.0, named("bench_scatter", name)))
     out.append(check_kernel(
         "4", "gather_rows<round_bf16>", gsrc, "tools/bench_scatter.py:249",
         f"table [{S},{W}] f32, idx [{B}]", lambda: gather.gather_rows(table, idx, True),
-        lambda: gather.gather_rows_plain(table, idx, True), None, gather_bytes(idx), 0.0))
+        lambda: gather.gather_rows_plain(table, idx, True), None, gather_bytes(idx), 0.0,
+        named("bench_scatter", "pallas one-hot MXU gather S=2^19")))
     out.append(check_kernel(
         "5", "scatter_add_rows<round_bf16>", ssrc, "tools/bench_scatter.py:287",
         f"idx [{B}], rows [{B},{W}] -> [{S},{W}]",
         lambda: scatter.scatter_add_rows(idx[None], rows[None], S, round_bf16=True),
         lambda: scatter.scatter_add_rows_plain(idx[None], rows[None], S, round_bf16=True),
-        None, scatter_bytes(S), FEW_ROWS_ATOL))
+        None, scatter_bytes(S), FEW_ROWS_ATOL,
+        named("bench_scatter", "pallas one-hot MXU scatter S=2^19")))
     out.append(check_kernel(
         "6", "scatter_rows_tiled<f32>", tsrc, "tools/bench_scatter.py:324",
         f"idx [{B}], rows [{B},{W}] -> [{Ss},{W}]",
         lambda: scatter.scatter_rows_tiled(idx_s, rows, Ss),
         lambda: scatter.scatter_rows_tiled_plain(idx_s, rows, Ss),
-        index_add(idx_s, Ss), scatter_bytes(Ss), SCATTER_ATOL))
+        index_add(idx_s, Ss), scatter_bytes(Ss), SCATTER_ATOL,
+        named("bench_scatter", f"pallas fori scatter (S={Ss} VMEM)")))
     for s_lvl in (4096, 32768, 131072):
         i = idx % s_lvl
         out.append(check_kernel(
@@ -215,7 +228,8 @@ def check_bench_kernels():
             f"idx [{B}], rows [{B},{W}] -> [{s_lvl},{W}]",
             lambda: scatter.scatter_rows_tiled(i, rows, s_lvl),
             lambda: scatter.scatter_rows_tiled_plain(i, rows, s_lvl),
-            index_add(i, s_lvl), scatter_bytes(s_lvl), SCATTER_ATOL))
+            index_add(i, s_lvl), scatter_bytes(s_lvl), SCATTER_ATOL,
+            ("bench_scatter2", rf"pallas fori S={s_lvl} K=\d+ acc \(\d+MB\)")))
     for acc, name in ((f32, "scatter_rows_tiled<f32>"), (bf16, "scatter_rows_tiled<bf16>")):
         out.append(check_kernel(
             "8", name, tsrc, "tools/bench_gs4.py:51",
@@ -224,8 +238,35 @@ def check_bench_kernels():
             lambda: scatter.scatter_rows_tiled_plain(idx, rows, S, acc),
             index_add(idx, S) if acc == f32 else None, scatter_bytes(S),
             FEW_ROWS_ATOL if acc == f32
-            else (lambda ref: BF16_ACC_RTOL * float(ref.abs().max()))))
+            else (lambda ref: BF16_ACC_RTOL * float(ref.abs().max())),
+            ("bench_gs4", rf"tiled pallas n=\d+ K=\d+ {str(acc)[6:]} *\(\d+MB\)")))
     return out
+
+
+def bf16_accumulator_readings():
+    """Readings behind BF16_ACC_RTOL: scatter_rows_tiled<bf16> and its plain
+    version (index_add_ into bf16, also atomic on the card) sum the same
+    bf16-rounded rows in two orders; each against the other and against the
+    f64 sum, at 0.5 rows a slot (row 8), 1 (the cuda-marked test) and 64 (a
+    dense 4096-row level)."""
+    import torch
+    from envidr_tpu_torch.ops import scatter
+
+    W = BENCH["W"]
+    for S, B in ((BENCH["S"], BENCH["B"]), (8192, 8192), (4096, BENCH["B"])):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        idx = torch.randint(0, S, (B,), device="cuda", generator=g, dtype=torch.int32)
+        rows = torch.randn(B, W, device="cuda", generator=g)
+        kern = scatter.scatter_rows_tiled(idx, rows, S, torch.bfloat16)
+        plain = scatter.scatter_rows_tiled_plain(idx, rows, S, torch.bfloat16)
+        exact = torch.zeros((S, W), dtype=torch.float64, device="cuda").index_add_(
+            0, idx.long(), rows.to(torch.bfloat16).double())
+        top = float(exact.abs().max())
+        phase("kernels", "bf16 accumulator reading", S=S, B=B, rows_per_slot=B / S,
+              max_abs_sum=top, kernel_vs_plain=float((kern - plain).abs().max()),
+              kernel_vs_f64=float((kern.double() - exact).abs().max()),
+              plain_vs_f64=float((plain.double() - exact).abs().max()),
+              rtol_2_7=2.0**-7 * top, tol=BF16_ACC_RTOL * top)
 
 
 def check_hash():
@@ -348,6 +389,7 @@ def main() -> int:
     K0 = opt.early_stop_steps                        # the first epoch's budget
     rows = [check_scatter(cfg.hash_spec, B=opt.num_rays * K0, W=8 * cfg.level_dim)]
     rows += check_bench_kernels()
+    bf16_accumulator_readings()
     libs = dict(kernel_libraries())
 
     par = check_parity()
@@ -403,17 +445,26 @@ def main() -> int:
 
     for lib in libs.values():                        # the benchmarks' path starts here
         lib.launches = 0
+    summaries = {}
     for bench in (bench_scatter, bench_scatter2, bench_gs4):
-        bench.main(["--iters", str(BENCH_ITERS), "--e2e-iters", str(BENCH_ITERS)]
-                   if bench is bench_scatter else ["--iters", str(BENCH_ITERS)])
-    bench_launches = {k: lib.launches for k, lib in libs.items()}   # and ends here
-    unused = [k for k, n in bench_launches.items() if k != "scatter_add_rows" and n == 0]
-    if unused:
-        raise AssertionError(f"the micro-benchmarks launched no {unused}")
-    phase("bench", **{f"launches[{k}]": n for k, n in bench_launches.items()})
-
+        name = bench.__name__.rsplit(".", 1)[-1]
+        summaries[name] = bench.main(
+            ["--iters", str(BENCH_ITERS), "--e2e-iters", str(BENCH_ITERS)]
+            if bench is bench_scatter else ["--iters", str(BENCH_ITERS)])
+    # and ends here; each table row takes the launches of its own bench rows
     for row in rows:
-        row["launches"] = (train_launches if row["row"] == "1" else bench_launches)[row["name"]]
+        bench_rows = row.pop("bench_rows")
+        if bench_rows is None:                       # row 1: the train path's count
+            row["launches"] = train_launches[row["name"]]
+            continue
+        bench, pattern = bench_rows
+        matched = [r for r in summaries[bench]["rows"] if re.fullmatch(pattern, r["name"])]
+        row["launches"] = sum(r["launches"].get(libs[row["name"]].symbol, 0) for r in matched)
+        if not row["launches"]:
+            raise AssertionError(f"row {row['row']} ({row['shape']}): the {bench} rows "
+                                 f"{[r['name'] for r in matched]} launched no {row['name']}")
+    phase("bench", launches_by_row=repr(" ".join(f"{r['row']}:{r['launches']}" for r in rows)))
+
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

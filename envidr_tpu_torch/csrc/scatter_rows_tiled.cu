@@ -22,10 +22,10 @@
 // Design: each block owns a tile of output rows (as many as fit in 192 KB of
 // dynamic shared memory: 2891 rows of 16 f32, 5461 in bf16, each row padded
 // by one word) and one share of the batch.  It zeroes its tile, scans its
-// share of the indices (four per thread and step, one 16-byte load), adds
-// each row that falls in its tile with shared-memory atomics, and flushes
-// the tile: plain stores when one block covers the whole batch for that
-// tile, global atomicAdd (into an output zeroed first) otherwise.  The batch
+// share of the indices (one per thread and step), adds each row that falls
+// in its tile with shared-memory atomics, and flushes the tile: plain stores
+// when one block covers the whole batch for that tile, global atomicAdd
+// (into an output zeroed first) otherwise.  The batch
 // is split only while each block still receives about two rows for each row
 // of its tile, so that the flush costs no more than the scan.  At S = 2^19
 // this rereads the 1 MB index array once per tile (182 tiles, mostly from
@@ -94,7 +94,7 @@ scatter_rows_tiled_kernel(const int32_t* __restrict__ idx,
                           const float4* __restrict__ rows,
                           float* __restrict__ out, int64_t B, int64_t S,
                           int W, int64_t tile_rows, int64_t rows_per_split,
-                          int atomic_flush, int idx_aligned) {
+                          int atomic_flush) {
   extern __shared__ __align__(16) unsigned char smem[];
   Acc* tile = reinterpret_cast<Acc*>(smem);
   const int64_t t0 = (int64_t)blockIdx.x * tile_rows;
@@ -103,36 +103,16 @@ scatter_rows_tiled_kernel(const int32_t* __restrict__ idx,
   for (int i = threadIdx.x; i < T * stride; i += blockDim.x) zero(tile + i);
   __syncthreads();
 
-  // the scan: four indices per thread and step (one 16-byte load) where the
-  // index array is 16-byte aligned (split starts are multiples of 4), one
-  // at a time for the rest.  The blocks of different tiles scan the same
-  // indices; each starts at another place, so that they do not all read the
-  // same L2 lines at once.
+  // the scan of this block's share of the batch
   const int64_t b0 = (int64_t)blockIdx.y * rows_per_split;
   const int64_t b1 = min(B, b0 + rows_per_split);
-  const int64_t n4 = idx_aligned && b1 > b0 ? (b1 - b0) / 4 : 0;
-  const int64_t start = n4 ? (int64_t)blockIdx.x * n4 / gridDim.x : 0;
-  const int4* idx4 = reinterpret_cast<const int4*>(idx + b0);
-  for (int64_t k = threadIdx.x; k < n4; k += blockDim.x) {
-    const int64_t kk = (k + start) % n4;
-    const int4 q = __ldg(idx4 + kk);
-    const int64_t b = b0 + 4 * kk;
-    add_if_in_tile(tile, rows, b + 0, (int64_t)q.x - t0, T, W);
-    add_if_in_tile(tile, rows, b + 1, (int64_t)q.y - t0, T, W);
-    add_if_in_tile(tile, rows, b + 2, (int64_t)q.z - t0, T, W);
-    add_if_in_tile(tile, rows, b + 3, (int64_t)q.w - t0, T, W);
-  }
-  for (int64_t b = b0 + 4 * n4 + threadIdx.x; b < b1; b += blockDim.x)
+  for (int64_t b = b0 + threadIdx.x; b < b1; b += blockDim.x)
     add_if_in_tile(tile, rows, b, (int64_t)__ldg(idx + b) - t0, T, W);
   __syncthreads();
 
-  // the flush; with several splits, each block starts at another offset so
-  // that the blocks of one tile do not add to the same rows at once
+  // the flush
   float* o = out + t0 * W;
-  const int n = T * W;
-  const int shift = atomic_flush ? (n / gridDim.y) * blockIdx.y : 0;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int i = (k + shift) % n;
+  for (int i = threadIdx.x; i < T * W; i += blockDim.x) {
     const float v = widen(tile[(i / W) * stride + i % W]);
     if (!atomic_flush) {
       o[i] = v;
@@ -178,9 +158,8 @@ int launch(const void* idx, const void* rows, void* out, int64_t B, int64_t S,
   const int64_t max_splits = (2 * (int64_t)sms + n_tiles - 1) / n_tiles;
   if (n_splits > max_splits) n_splits = max_splits;
   if (n_splits < 1) n_splits = 1;
-  const int64_t rows_per_split = ((B + n_splits - 1) / n_splits + 3) / 4 * 4;
+  const int64_t rows_per_split = (B + n_splits - 1) / n_splits;
   const int atomic_flush = n_splits > 1;
-  const int idx_aligned = (reinterpret_cast<uintptr_t>(idx) & 15) == 0;
 
   if (atomic_flush) {
     err = cudaMemsetAsync(out, 0, (size_t)(S * W) * sizeof(float), s);
@@ -191,7 +170,7 @@ int launch(const void* idx, const void* rows, void* out, int64_t B, int64_t S,
   scatter_rows_tiled_kernel<Acc><<<grid, kThreads, smem, s>>>(
       static_cast<const int32_t*>(idx), static_cast<const float4*>(rows),
       static_cast<float*>(out), B, S, (int)W, tile_rows, rows_per_split,
-      atomic_flush, idx_aligned);
+      atomic_flush);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-from envidr_tpu_torch.ops.scatter import CudaLibrary, launch, on_card
+from envidr_tpu_torch.ops._cuda import CudaLibrary, launch, on_card
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gather_rows.cu"
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,

@@ -25,93 +25,23 @@ scatters ``tools/bench_scatter.py:324`` ``s_pallas_fori``,
 ``tools/bench_gs4.py:51`` ``make_tiled``.  Bound: bytes, ``B*(4 + 4W)`` read
 and ``S*W*4`` written.
 
-Build: ``nvcc`` compiles the source at first use into ``envidr_tpu_torch/_build/``
-(keyed by a hash of the source and flags) and the library is loaded with
-ctypes.  A CUDA tensor always takes the kernel; if the build or the launch
-fails the wrapper raises.  A CPU tensor takes the plain version
+Build and launch: ``ops/_cuda.py``.  A CUDA tensor always takes the kernel;
+if the build or the launch fails the wrapper raises.  A CPU tensor takes the plain version
 (:func:`scatter_add_rows_plain`, :func:`scatter_rows_tiled_plain`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
-from typing import Optional
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "scatter_add_rows.cu"
-TILED_SOURCE = _PKG / "csrc" / "scatter_rows_tiled.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-NVCC_TIMEOUT_S = 600
+from envidr_tpu_torch.ops._cuda import CudaLibrary, launch, on_card
 
-
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the kernels of csrc/")
-    return nvcc
-
-
-class CudaLibrary:
-    """A ``csrc/*.cu`` file built by nvcc into a shared library, loaded with
-    ctypes; counts the launches made through it."""
-
-    def __init__(self, source: Path, symbol: str, argtypes):
-        self.source = Path(source)
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.launches = 0
-        self._fn = None
-
-    def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{h}.so"
-
-    def build(self) -> Optional[float]:
-        """Compile if no library for this source exists; returns the nvcc
-        seconds, or None when the cached library was used."""
-        out = self.library_path()
-        if out.exists():
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=NVCC_TIMEOUT_S)
-        except subprocess.TimeoutExpired as e:
-            raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s: "
-                               f"{' '.join(cmd)}") from e
-        if proc.returncode != 0:
-            print(proc.stderr, flush=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
-        os.replace(tmp, out)           # atomic: concurrent builds race safely
-        return time.perf_counter() - t0
-
-    def fn(self):
-        if self._fn is None:
-            self.build()
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = _CSRC / "scatter_add_rows.cu"
+TILED_SOURCE = _CSRC / "scatter_rows_tiled.cu"
 
 _SCATTER_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                  ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
@@ -124,30 +54,6 @@ TILED = {torch.float32: CudaLibrary(TILED_SOURCE, "scatter_rows_tiled_f32_launch
                                     _TILED_ARGS),
          torch.bfloat16: CudaLibrary(TILED_SOURCE, "scatter_rows_tiled_bf16_launch",
                                      _TILED_ARGS)}
-
-
-def on_card(name: str, *tensors: torch.Tensor) -> bool:
-    """False when every tensor lies on the CPU (the plain version's case),
-    True when all lie on one CUDA device; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return False
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; "
-                         "expected all on the CPU or all on one CUDA device")
-    return True
-
-
-def launch(lib: CudaLibrary, name: str, device: torch.device, *args) -> None:
-    """Call ``lib``'s launcher on ``device``'s current stream; raise on a
-    non-zero cudaError, else count the launch."""
-    fn = lib.fn()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    lib.launches += 1
 
 
 def _check(idx: torch.Tensor, rows: torch.Tensor, s_max: int):

@@ -8,6 +8,8 @@ from typing import Callable, Dict, List
 
 import torch
 
+from envidr_tpu_torch.ops._cuda import launch_counts
+
 # Larger than the H100's 50 MB L2: zeroing it between launches evicts the
 # previous launch's inputs and outputs, so each timed launch reads from HBM
 L2_FLUSH_BYTES = 256 * 2**20
@@ -61,16 +63,23 @@ class Bench:
     def time(self, fn: Callable[[], object], iters: int = None) -> float:
         return self._time(fn, self.iters if iters is None else iters, self.warmup)
 
-    def report(self, name: str, t: float, rows: float, nbytes: float) -> None:
-        """One row: ``name  ms  Mrows/s  GB/s`` (the TPU scripts' format)."""
+    def report(self, name: str, t: float, rows: float, nbytes: float,
+               launches: Dict[str, int] = None) -> None:
+        """One row: ``name  ms  Mrows/s  GB/s`` (the TPU scripts' format);
+        ``launches`` (``{launcher: count}``) goes into the summary only."""
         self.rows.append({"name": name, "ms": t * 1e3, "mrows_per_s": rows / t / 1e6,
-                          "gb_per_s": nbytes / t / 1e9})
+                          "gb_per_s": nbytes / t / 1e9, "launches": launches or {}})
         print(f"{name:52s} {t * 1e3:10.4f} ms {rows / t / 1e6:10.1f} Mrows/s "
               f"{nbytes / t / 1e9:8.2f} GB/s", flush=True)
 
     def run(self, name: str, fn: Callable[[], object], rows: float, nbytes: float,
             iters: int = None) -> None:
-        self.report(name, self.time(fn, iters), rows, nbytes)
+        """Time ``fn`` and report it with the kernel launches it made."""
+        before = launch_counts()
+        t = self.time(fn, iters)
+        launches = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+                    if n != before.get(k, 0)}
+        self.report(name, t, rows, nbytes, launches)
 
     def summary(self) -> dict:
         """Print (after the bench's name) and return the JSON summary of

@@ -24,6 +24,9 @@ from envidr_tpu_torch import resolve_device
 from envidr_tpu_torch.ops.scatter import scatter_rows_tiled
 from envidr_tpu_torch.tools._timing import Bench, pow2_name
 
+W = 16                         # row width: 8 corners x 2 features
+SEED = 0
+
 CONFIGS = ((8, 2, torch.float32), (8, 4, torch.float32), (4, 2, torch.bfloat16),
            (2, 1, torch.bfloat16))
 FILTER_MB = 13                 # the script's filter on K * TILE * W * bytes
@@ -34,17 +37,15 @@ def parse_args(argv=None):
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--B", type=int, default=262_144)
     ap.add_argument("--S", type=int, default=1 << 19)
-    ap.add_argument("--W", type=int, default=16)
-    ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
 
 def main(argv=None, device=None) -> dict:
     a = parse_args(argv)
     dev = resolve_device(device)
-    B, S, W = a.B, a.S, a.W
+    B, S = a.B, a.S
     bench = Bench("bench_gs4", dev, a.iters)
-    g = torch.Generator(device=dev).manual_seed(a.seed)
+    g = torch.Generator(device=dev).manual_seed(SEED)
     idx = torch.randint(0, S, (B,), device=dev, generator=g, dtype=torch.int32)
     rows = torch.randn(B, W, device=dev, generator=g)
     i64 = idx.long()

@@ -33,6 +33,9 @@ from envidr_tpu_torch.ops.hashgrid import HashGridSpec, hash_encode, init_hash_e
 from envidr_tpu_torch.ops.scatter import scatter_add_rows, scatter_rows_tiled
 from envidr_tpu_torch.tools._timing import Bench, pow2_name
 
+W = 16                         # row width: 8 corners x 2 features
+SEED = 0
+
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -40,19 +43,17 @@ def parse_args(argv=None):
     ap.add_argument("--e2e-iters", type=int, default=5)
     ap.add_argument("--B", type=int, default=262_144, help="sample rows per level")
     ap.add_argument("--S", type=int, default=1 << 19, help="table rows per level")
-    ap.add_argument("--W", type=int, default=16, help="row width")
     ap.add_argument("--L", type=int, default=16, help="levels")
     ap.add_argument("--s-small", type=int, default=4096, help="small dense level")
-    ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
 
 def main(argv=None, device=None) -> dict:
     a = parse_args(argv)
     dev = resolve_device(device)
-    B, S, W, L, Ss = a.B, a.S, a.W, a.L, a.s_small
+    B, S, L, Ss = a.B, a.S, a.L, a.s_small
     bench = Bench("bench_scatter", dev, a.iters)
-    g = torch.Generator(device=dev).manual_seed(a.seed)
+    g = torch.Generator(device=dev).manual_seed(SEED)
     idx = torch.randint(0, S, (B,), device=dev, generator=g, dtype=torch.int32)
     rows = torch.randn(B, W, device=dev, generator=g)
     table = torch.randn(S, W, device=dev, generator=g)
@@ -140,7 +141,7 @@ def main(argv=None, device=None) -> dict:
         spec = HashGridSpec(num_levels=L, level_dim=2, base_resolution=16,
                             log2_hashmap_size=S.bit_length() - 1, desired_resolution=2048,
                             interpolation="smoothstep", indexing=indexing)
-        emb = init_hash_embeddings(spec, generator=torch.Generator().manual_seed(a.seed))
+        emb = init_hash_embeddings(spec, generator=torch.Generator().manual_seed(SEED))
         emb = emb.to(dev)
         x = torch.rand(B, 3, device=dev, generator=g)
 

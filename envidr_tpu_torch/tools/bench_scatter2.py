@@ -29,6 +29,9 @@ from envidr_tpu_torch import resolve_device
 from envidr_tpu_torch.ops.scatter import scatter_rows_tiled
 from envidr_tpu_torch.tools._timing import Bench
 
+W = 16                         # row width: 8 corners x 2 features
+SEED = 0
+
 MULTI = ((4096, (1, 2, 4, 8)), (32768, (1, 2, 4)), (131072, (1, 2)))
 VMEM_MB = 14                   # the script's filter on K * S_lvl * W * 4 bytes
 
@@ -38,18 +41,16 @@ def parse_args(argv=None):
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--B", type=int, default=262_144)
     ap.add_argument("--S", type=int, default=1 << 19)
-    ap.add_argument("--W", type=int, default=16)
     ap.add_argument("--L", type=int, default=16)
-    ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
 
 def main(argv=None, device=None) -> dict:
     a = parse_args(argv)
     dev = resolve_device(device)
-    B, S, W, L = a.B, a.S, a.W, a.L
+    B, S, L = a.B, a.S, a.L
     bench = Bench("bench_scatter2", dev, a.iters)
-    g = torch.Generator(device=dev).manual_seed(a.seed)
+    g = torch.Generator(device=dev).manual_seed(SEED)
     idxL = torch.randint(0, S, (L, B), device=dev, generator=g, dtype=torch.int32)
     rowsL = torch.randn(L, B, W, device=dev, generator=g)
     flat_rows = rowsL.reshape(-1, W)

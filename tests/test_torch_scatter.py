@@ -12,7 +12,7 @@ import jax.numpy as jnp
 
 from envidr_tpu.ops.hashgrid import HashGridSpec as JaxSpec, _scatter_rows as jax_scatter_rows
 from envidr_tpu.ops.pallas_scatter import scatter_add_rows as pallas_scatter
-from envidr_tpu_torch.ops import scatter
+from envidr_tpu_torch.ops import _cuda, scatter
 from envidr_tpu_torch.ops.hashgrid import HashGridSpec, _scatter_rows
 
 ATOL = 1e-5      # f32 sums of a handful of unit-normal rows, any order
@@ -86,7 +86,7 @@ def test_wrapper_rejects_bad_input(bad):
 
 def test_library_path_is_keyed_by_source():
     p = scatter.KERNEL.library_path()
-    assert p.parent == scatter.BUILD_DIR and p.suffix == ".so"
+    assert p.parent == _cuda.BUILD_DIR and p.suffix == ".so"
     assert p.name.startswith("scatter_add_rows-")
 
 

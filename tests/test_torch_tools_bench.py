@@ -5,10 +5,13 @@ script it ports; without a device and without a card each raises."""
 import importlib
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
 
+from envidr_tpu_torch.ops import _cuda
+from envidr_tpu_torch.tools._timing import Bench
 from test_torch_helpers import ROOT, tool_row_templates
 from test_torch_isolation import IMPORT_RE, SOURCES
 
@@ -55,3 +58,16 @@ def test_isolation_scan_covers_the_tools_subpackage():
     for p in SOURCES:
         assert "sys.path" not in Path(p).read_text() or p.name == "chip_smoke.py", p
     assert not any(Path(ROOT, "tools") in Path(p).parents for p in SOURCES)
+
+
+def test_bench_rows_record_their_own_kernel_launches(monkeypatch, capsys):
+    fake = SimpleNamespace(symbol="fake_launch", launches=0)
+    monkeypatch.setattr(_cuda, "LIBRARIES", [fake])
+
+    def launch():
+        fake.launches += 1
+
+    bench = Bench("t", torch.device("cpu"), iters=3, warmup=1)
+    bench.run("launches", launch, 1, 1)
+    bench.run("launches none", lambda: None, 1, 1)
+    assert [r["launches"] for r in bench.summary()["rows"]] == [{"fake_launch": 4}, {}]

@@ -11,7 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
-from envidr_tpu_torch.ops import gather, scatter
+from envidr_tpu_torch.ops import _cuda, gather, scatter
 from test_torch_helpers import load_tool_functions
 
 B, S, S_SMALL, W = 8192, 8192, 1024, 16
@@ -19,6 +19,10 @@ SMALL = dict(B=B, S=S, W=W, L=1, S_small=S_SMALL, BLK=1024, BLK_B=1024, TILE_S=2
 F32_ATOL = 1e-5           # f32 sums of ~8 unit-normal rows, in another order
 BF16_ROWS_ATOL = 1e-5     # f32 sums of bf16-rounded rows (both round to nearest even)
 BF16_ACC_RTOL = 2.0**-7   # of max |ref|: bf16 sums, a few bf16 ulps in another order
+BF16_ORDER_RTOL = 2.0**-5  # of max |ref|: on the card both sides sum in orders that
+                           # atomics choose, which differ by up to 2 ulps of the largest
+                           # sums, 2^-7 of max |ref| or more (chip_smoke.py's bf16
+                           # accumulator readings, PERF.md); 2^-5 is 4-8 ulps
 
 
 @pytest.fixture(scope="module")
@@ -142,7 +146,7 @@ def test_libraries_are_keyed_by_source():
                       (scatter.TILED[torch.float32], "scatter_rows_tiled"),
                       (scatter.KERNEL_BF16, "scatter_add_rows")):
         p = lib.library_path()
-        assert p.parent == scatter.BUILD_DIR and p.name.startswith(stem + "-")
+        assert p.parent == _cuda.BUILD_DIR and p.name.startswith(stem + "-")
     assert gather.KERNEL.library_path() == gather.KERNEL_BF16.library_path()
 
 
@@ -177,5 +181,5 @@ def test_kernels_match_plain_on_card(cuda_device, data):
         torch.cuda.synchronize()
         assert lib.launches == before + 1
         ref = plain()
-        atol = BF16_ACC_RTOL * 4 * float(ref.abs().max()) if atol is None else atol
+        atol = BF16_ORDER_RTOL * float(ref.abs().max()) if atol is None else atol
         assert float((out - ref).abs().max()) <= atol, lib.symbol
