@@ -12,16 +12,22 @@ seconds:
            path gives it (the train step for scatter_add_rows, the
            micro-benchmarks' shapes for the others), with CUDA-event times of
            the kernel, the plain version and, where there is one, a single
-           library call computing the same function, beside the bound; then
-           readings of the bf16 accumulator's summation-order noise
+           library call computing the same function, beside the bound, and
+           for the scatters the times of both designs (direct and tiled);
+           then both designs from 0.5 to 4096 rows a slot (the readings
+           behind the scatters' rule), readings of the bf16 accumulator's
+           summation-order noise and the scatters' edge shapes
+           (envidr_tpu_torch.tools.scatter_edges)
   parity   a small model, one train-step loss and its gradients on the card
            (through the kernels) against the same step on the CPU (plain
-           versions)
+           versions), and the CPU f32 step against an f64 one, per tensor
   hash     the ``hash`` encoder's forward and first/second-order gradients
            and the ``sorted`` scatter on the card against the CPU, small size
   train    configs/synth_spheres.ini at full width (rolled_tiled hash grid,
            hash_scatter_impl=mixed, hand-written hash VJP) on the in-memory
-           sphere scene: 20 train steps; launch counts are zeroed just before
+           sphere scene: 20 train steps, each step that neither starts an
+           epoch nor refreshes the grid under torch.cuda's sync debug mode
+           "error"; launch counts are zeroed just before
   render   one 400x400 eval render of a val view, PSNR against the analytic
            ground truth; launch counts are read just after
   bench    the three micro-benchmarks of envidr_tpu_torch.tools at their full
@@ -63,10 +69,13 @@ HASH_GRAD1_RTOL = 1e-5             # of max: f32 sums over 8 corners x levels
 HASH_GRAD2_RTOL = 1.3e-3           # of max: double backward (ROADMAP C-3)
 SORTED_ATOL = 1e-4                 # cumsum differences (the JAX package's bound)
 BENCH = dict(B=262_144, W=16, S=1 << 19, S_small=4096)   # tools/bench_scatter.py:22-25,87
-PARITY_RTOL = 2e-2                 # of each tensor's max |value|: this f32 step
-                                   # is itself only good to ~1e-2 of its max
-                                   # (hash-table grads, CPU f32 against f64), so
-                                   # two summation orders may differ that much
+PARITY_RTOL = 5e-3                 # of each tensor's max |value|: the card and
+                                   # the CPU sum in other orders; the largest
+                                   # reading, card f32 against CPU f32, is
+                                   # 1.30e-3 (sdf_net.0.weight; PERF.md), so this
+                                   # is a margin of ~4x over it.  The f32 step is
+                                   # itself 9.4e-3 from f64 on the table gradient
+                                   # (the cpu_f32_vs_cpu_f64 reading)
 
 
 def phase(name: str, *words, **numbers):
@@ -101,14 +110,25 @@ def build_all():
     return {src.stem: s for src, s in zip(by_source, secs)}
 
 
+def design_readings(designs):
+    """ms of each design of a scatter (``designs(path)``), timed in turns
+    direct, tiled, tiled, direct (CUDA events, L2 flushed)."""
+    from envidr_tpu_torch.tools._timing import cuda_time
+    ms = {"direct": [], "tiled": []}
+    for path in ("direct", "tiled", "tiled", "direct"):
+        ms[path].append(cuda_time(lambda: designs(path), 20, 3) * 1e3)
+    return {path: sum(v) / len(v) for path, v in ms.items()}
+
+
 def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbytes,
-                 tol, bench_rows=None):
+                 tol, bench_rows=None, designs=None):
     """One kernel against its plain version on the same inputs, then timed
     (CUDA events, L2 flushed) beside its plain version, the library call
     (``(name, fn)`` or None) and the bytes bound.  ``tol`` is an absolute
     tolerance or a callable of the plain result.  ``bench_rows`` is
     ``(micro-benchmark, row-name pattern)``: the rows that launch this kernel
-    for this table row."""
+    for this table row.  ``designs`` (a scatter's call by path) also times
+    both designs of the scatter, each checked first."""
     import torch
     from envidr_tpu_torch.tools._timing import cuda_time
     out = run()
@@ -119,6 +139,14 @@ def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbyt
     if not err <= tol:
         raise AssertionError(f"{kernel} ({shape}) disagrees with its plain version: "
                              f"max_abs_err={err} > {tol}")
+    design_ms = None
+    if designs is not None:
+        for path in ("direct", "tiled"):
+            e = float((designs(path) - ref).abs().max())
+            if not e <= tol:
+                raise AssertionError(f"{kernel} ({shape}), {path} design: "
+                                     f"max_abs_err={e} > {tol}")
+        design_ms = design_readings(designs)
     ms = cuda_time(run, 20, 3) * 1e3
     plain_ms = cuda_time(plain, 20, 3) * 1e3
     library_ms = None if library is None else cuda_time(library[1], 20, 3) * 1e3
@@ -130,11 +158,13 @@ def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbyt
               "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
               "row": row, "shape": shape, "tolerance": tol,
-              "library": None if library is None else library[0], "bench_rows": bench_rows}
+              "library": None if library is None else library[0], "bench_rows": bench_rows,
+              "design_ms": design_ms}
     phase("kernels", f"row {row} {kernel} ok", shape=repr(shape), max_abs_err=err,
           tol=tol, ms=ms, plain_ms=plain_ms,
           library_ms="none" if library_ms is None else library_ms,
-          library=repr(result["library"]), bound_ms=bound_ms)
+          library=repr(result["library"]), bound_ms=bound_ms,
+          **({} if design_ms is None else {f"{k}_ms": v for k, v in design_ms.items()}))
     return result
 
 
@@ -161,7 +191,8 @@ def check_scatter(spec, B: int, W: int):
         lambda: scatter.scatter_add_rows(idx, rows, s_max),
         lambda: scatter.scatter_add_rows_plain(idx, rows, s_max),
         ("index_add_", library), L * B * 4 + L * B * W * 4 + L * s_max * W * 4,
-        SCATTER_ATOL)
+        SCATTER_ATOL, designs=lambda path: scatter.scatter_add_rows(idx, rows, s_max,
+                                                                    path=path))
 
 
 def check_bench_kernels():
@@ -213,14 +244,16 @@ def check_bench_kernels():
         lambda: scatter.scatter_add_rows(idx[None], rows[None], S, round_bf16=True),
         lambda: scatter.scatter_add_rows_plain(idx[None], rows[None], S, round_bf16=True),
         None, scatter_bytes(S), FEW_ROWS_ATOL,
-        named("bench_scatter", "pallas one-hot MXU scatter S=2^19")))
+        named("bench_scatter", "pallas one-hot MXU scatter S=2^19"),
+        lambda path: scatter.scatter_add_rows(idx[None], rows[None], S, True, path)))
     out.append(check_kernel(
         "6", "scatter_rows_tiled<f32>", tsrc, "tools/bench_scatter.py:324",
         f"idx [{B}], rows [{B},{W}] -> [{Ss},{W}]",
         lambda: scatter.scatter_rows_tiled(idx_s, rows, Ss),
         lambda: scatter.scatter_rows_tiled_plain(idx_s, rows, Ss),
         index_add(idx_s, Ss), scatter_bytes(Ss), SCATTER_ATOL,
-        named("bench_scatter", f"pallas fori scatter (S={Ss} VMEM)")))
+        named("bench_scatter", f"pallas fori scatter (S={Ss} VMEM)"),
+        lambda path: scatter.scatter_rows_tiled(idx_s, rows, Ss, path=path)))
     for s_lvl in (4096, 32768, 131072):
         i = idx % s_lvl
         out.append(check_kernel(
@@ -229,7 +262,8 @@ def check_bench_kernels():
             lambda: scatter.scatter_rows_tiled(i, rows, s_lvl),
             lambda: scatter.scatter_rows_tiled_plain(i, rows, s_lvl),
             index_add(i, s_lvl), scatter_bytes(s_lvl), SCATTER_ATOL,
-            ("bench_scatter2", rf"pallas fori S={s_lvl} K=\d+ acc \(\d+MB\)")))
+            ("bench_scatter2", rf"pallas fori S={s_lvl} K=\d+ acc \(\d+MB\)"),
+            lambda path: scatter.scatter_rows_tiled(i, rows, s_lvl, path=path)))
     for acc, name in ((f32, "scatter_rows_tiled<f32>"), (bf16, "scatter_rows_tiled<bf16>")):
         out.append(check_kernel(
             "8", name, tsrc, "tools/bench_gs4.py:51",
@@ -239,8 +273,35 @@ def check_bench_kernels():
             index_add(idx, S) if acc == f32 else None, scatter_bytes(S),
             FEW_ROWS_ATOL if acc == f32
             else (lambda ref: BF16_ACC_RTOL * float(ref.abs().max())),
-            ("bench_gs4", rf"tiled pallas n=\d+ K=\d+ {str(acc)[6:]} *\(\d+MB\)")))
+            ("bench_gs4", rf"tiled pallas n=\d+ K=\d+ {str(acc)[6:]} *\(\d+MB\)"),
+            lambda path: scatter.scatter_rows_tiled(idx, rows, S, acc, path)))
     return out
+
+
+def rule_readings():
+    """Readings behind ops/scatter.py:scatter_plan's rule: both designs of
+    scatter_rows_tiled<f32> at B = 262,144 rows into tables of 2^19 down to 64
+    rows (0.5 to 4096 rows a slot), each checked against its plain version,
+    timed in turns (CUDA events, L2 flushed)."""
+    import torch
+    from envidr_tpu_torch.ops import scatter
+
+    B, W = BENCH["B"], BENCH["W"]
+    for S in (1 << 19, 4096, 512, 128, 64):
+        g = torch.Generator(device="cuda").manual_seed(2)
+        idx = torch.randint(0, S, (B,), device="cuda", generator=g, dtype=torch.int32)
+        rows = torch.randn(B, W, device="cuda", generator=g)
+        ref = scatter.scatter_rows_tiled_plain(idx, rows, S)
+        def designs(path, idx=idx, rows=rows, S=S):
+            return scatter.scatter_rows_tiled(idx, rows, S, path=path)
+
+        errs = {p: float((designs(p) - ref).abs().max()) for p in ("direct", "tiled")}
+        if not max(errs.values()) <= SCATTER_ATOL:
+            raise AssertionError(f"rule reading S={S}: {errs} > {SCATTER_ATOL}")
+        ms = design_readings(designs)
+        phase("kernels", "rule reading", S=S, rows_per_slot=B / S,
+              rule="direct" if scatter.scatter_plan(1, B, S, W).direct else "tiled",
+              direct_ms=ms["direct"], tiled_ms=ms["tiled"], max_abs_err=max(errs.values()))
 
 
 def bf16_accumulator_readings():
@@ -315,8 +376,8 @@ def check_hash():
     return {**errs, "tolerances": tols, "sorted_tol": SORTED_ATOL, "indices_equal": True}
 
 
-def check_parity():
-    """One small train-step loss + gradients: card (kernels) vs CPU (plain)."""
+def _parity_step(device: str, dtype, custom_grad: str):
+    """One small train-step loss, image and gradients, as f64 CPU tensors."""
     import torch
     from envidr_tpu_torch.config import load_options, network_config
     from envidr_tpu_torch.models.network import NeRFNetwork
@@ -324,39 +385,50 @@ def check_parity():
     from envidr_tpu_torch.train.trainer import Trainer
 
     opt = load_options(os.path.join(ROOT, "configs", "synth_spheres.ini"),
-                       hash_scatter_impl="mixed", hash_custom_grad="on", num_levels=4,
+                       hash_scatter_impl="mixed", hash_custom_grad=custom_grad, num_levels=4,
                        log2_hashmap_size=12, desired_resolution=64, hidden_dim=16,
                        hidden_dim_color=16, hidden_dim_env=16)
     cfg = network_config(opt)
-    sched = resolve(opt, 1, 0)
     gen = torch.Generator().manual_seed(3)
     rays_o = torch.randn(256, 3, generator=gen) * 0.1 + torch.tensor([0.0, 0.0, 2.5])
     target = torch.rand(256, 3, generator=gen) * 0.6 - 0.3
     rays_d = torch.nn.functional.normalize(target - rays_o, dim=-1)
     gt = torch.rand(256, 3, generator=gen)
     alpha = (torch.rand(256, generator=gen) > 0.5).float()
-    results = []
-    for device in ("cpu", "cuda"):
-        net = NeRFNetwork(cfg, generator=torch.Generator().manual_seed(0))
-        tr = Trainer(opt, cfg, device=device, net=net)
-        tr.grid = tr.grid._replace(bitfield=torch.ones_like(tr.grid.bitfield))
-        args = [t.to(device) for t in (rays_o, rays_d, gt, torch.ones(256, 3), alpha)]
-        loss, out, terms = tr.forward_loss(*args, K=32, sched=sched)
-        loss.backward()
-        grads = {n: p.grad.detach().cpu() for n, p in tr.net.named_parameters()}
-        results.append((float(loss.detach()), out["image"].detach().cpu(), grads))
-    (l0, im0, g0), (l1, im1, g1) = results
-    errs = {"loss": abs(l0 - l1) / max(abs(l0), 1e-12),
-            "image": float((im0 - im1).abs().max())}
-    for n in g0:
-        scale = max(float(g0[n].abs().max()), 1e-12)
-        errs[n] = float((g0[n] - g1[n]).abs().max()) / scale
-    worst = max(errs, key=errs.get)
-    if not errs[worst] <= PARITY_RTOL:
+    net = NeRFNetwork(cfg, generator=torch.Generator().manual_seed(0)).to(dtype)
+    tr = Trainer(opt, cfg, device=device, net=net)
+    tr.grid = tr.grid._replace(bitfield=torch.ones_like(tr.grid.bitfield))
+    args = [t.to(device, dtype) for t in (rays_o, rays_d, gt, torch.ones(256, 3), alpha)]
+    loss, out, _ = tr.forward_loss(*args, K=32, sched=resolve(opt, 1, 0))
+    loss.backward()
+    return {"loss": loss.detach().double().cpu().reshape(1),
+            "image": out["image"].detach().double().cpu(),
+            **{n: p.grad.detach().double().cpu() for n, p in tr.net.named_parameters()}}
+
+
+def check_parity():
+    """One small train-step loss, image and gradients: the card (kernels)
+    against the CPU (plain versions), both f32, gated by PARITY_RTOL; and, as
+    a reading of the f32 step's own error, the CPU f32 step against an f64
+    one (autograd's table gradient: the scatter takes f32 rows only).  Each
+    reading is max |a - b| / max |b| per tensor."""
+    import torch
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30)
+                for n in b}
+
+    cpu = _parity_step("cpu", torch.float32, "on")
+    card = rel(_parity_step("cuda", torch.float32, "on"), cpu)
+    f64 = rel(cpu, _parity_step("cpu", torch.float64, "off"))
+    phase("parity", "card_f32_vs_cpu_f32", json.dumps(card))
+    phase("parity", "cpu_f32_vs_cpu_f64", json.dumps(f64))
+    worst = max(card, key=card.get)
+    if not card[worst] <= PARITY_RTOL:
         raise AssertionError(f"card and CPU train steps disagree: {worst} "
-                             f"{errs[worst]} > {PARITY_RTOL}")
-    return {"loss_cpu": l0, "loss_cuda": l1, "max_rel_err": errs[worst],
-            "worst": worst, "tolerance": PARITY_RTOL}
+                             f"{card[worst]} > {PARITY_RTOL}")
+    return {"max_rel_err": card[worst], "worst": worst, "tolerance": PARITY_RTOL,
+            "f32_vs_f64_max": max(f64.values()), "f32_vs_f64_worst": max(f64, key=f64.get)}
 
 
 def main() -> int:
@@ -369,7 +441,7 @@ def main() -> int:
     import numpy as np
     from envidr_tpu_torch.config import load_options, network_config
     from envidr_tpu_torch.data.synth_scene import SynthSpheres
-    from envidr_tpu_torch.tools import bench_gs4, bench_scatter, bench_scatter2
+    from envidr_tpu_torch.tools import bench_gs4, bench_scatter, bench_scatter2, scatter_edges
     from envidr_tpu_torch.train.metrics import psnr
     from envidr_tpu_torch.train.trainer import Trainer
 
@@ -389,7 +461,10 @@ def main() -> int:
     K0 = opt.early_stop_steps                        # the first epoch's budget
     rows = [check_scatter(cfg.hash_spec, B=opt.num_rays * K0, W=8 * cfg.level_dim)]
     rows += check_bench_kernels()
+    rule_readings()
     bf16_accumulator_readings()
+    edges = scatter_edges.run(log=lambda line: phase("kernels", "edge", line))
+    phase("kernels", "edge shapes ok", checks=len(edges))
     libs = dict(kernel_libraries())
 
     par = check_parity()
@@ -406,22 +481,34 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     trainer.update_extra_state()
     occupied = float(trainer.grid.bitfield.float().mean())
-    losses, step_ms = [], []
+    losses, step_ms, sync_free = [], [], 0
     for i in range(TRAIN_STEPS):
+        # a step that neither starts an epoch nor refreshes the grid must not
+        # block the host: any synchronising call in it raises
+        guard = not trainer.step_may_sync()
         t = time.perf_counter()
-        m = trainer.train_step(train)
+        torch.cuda.set_sync_debug_mode("error" if guard else "default")
+        try:
+            m = trainer.train_step(train)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
-        losses.append(m["loss"])
-        if not np.isfinite(m["loss"]):
-            raise AssertionError(f"step {i + 1}: loss {m['loss']}")
+        sync_free += guard
+        losses.append(float(m["loss"]))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"step {i + 1}: loss {losses[-1]}")
     ms_per_step = float(np.mean(step_ms[3:]))
     launches_train = libs["scatter_add_rows"].launches
     if launches_train < TRAIN_STEPS:
         raise AssertionError(f"scatter_add_rows launched {launches_train} times in "
                              f"{TRAIN_STEPS} steps; expected at least one per step")
+    if int(trainer.notfinite) or sync_free < TRAIN_STEPS - 3:
+        raise AssertionError(f"notfinite {int(trainer.notfinite)}, {sync_free} steps "
+                             "checked for host syncs")
     phase("train", steps=TRAIN_STEPS, loss_1=losses[0], loss_20=losses[-1],
-          notfinite=trainer.notfinite, mean_samples_per_ray=m["mean_count"], K=m["K"],
+          notfinite=int(trainer.notfinite), mean_samples_per_ray=float(m["mean_count"]),
+          K=m["K"], sync_free_steps=sync_free,
           ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
           first_step_ms=step_ms[0], grid_occupied=occupied,
           scatter_launches=launches_train,

@@ -10,6 +10,9 @@ no device given and no card present they raise (:func:`resolve_device`).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -23,3 +26,20 @@ def resolve_device(device=None) -> torch.device:
                 "versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A constant tensor of ``values`` (numbers, sequences or a numpy array),
+    made once per (values, dtype, device) and shared: a copy from host
+    memory blocks the host, so the train step uploads its constants only at
+    their first use.  Callers must not write into it."""
+    return _constant(_frozen(np.asarray(values).tolist()), dtype, torch.device(device))
+
+
+def _frozen(v):
+    return tuple(map(_frozen, v)) if isinstance(v, list) else v

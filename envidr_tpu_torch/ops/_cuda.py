@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` source has a plain C interface: one ``extern "C"``
 launcher per instantiation, which takes device pointers, sizes and a stream
 and returns its ``cudaError_t``.  ``nvcc`` compiles a source at first use
-into ``envidr_tpu_torch/_build/`` (keyed by a hash of the source and the
-flags) and the library is loaded with ctypes.  Every :class:`CudaLibrary`
-counts the launches made through it and is listed in :data:`LIBRARIES`.
+into ``envidr_tpu_torch/_build/`` (keyed by a hash of the source, the
+headers it includes with quotes and the flags) and the library is loaded
+with ctypes.  Every :class:`CudaLibrary` counts the launches made through it
+and is listed in :data:`LIBRARIES`.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,6 +40,24 @@ def _find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _with_includes(source: Path) -> List[Path]:
+    """``source`` and every file it includes with quotes, recursively, in the
+    order first met: the files whose bytes key its library."""
+    seen: List[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [(path.parent / name.decode()).resolve()
+                 for name in reversed(_INCLUDE.findall(path.read_bytes()))]
+    return seen
+
+
 class CudaLibrary:
     """One launcher of a ``csrc/*.cu`` file built by nvcc into a shared
     library, loaded with ctypes; counts the launches made through it."""
@@ -51,9 +71,11 @@ class CudaLibrary:
         LIBRARIES.append(self)
 
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{h}.so"
+        h = hashlib.sha256()
+        for path in _with_includes(self.source):
+            h.update(path.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def build(self) -> Optional[float]:
         """Compile if no library for this source exists; returns the nvcc

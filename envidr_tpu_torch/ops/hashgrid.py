@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from envidr_tpu_torch import device_constant
 from envidr_tpu_torch.ops.scatter import scatter_add_rows, scatter_add_rows_plain
 
 
@@ -138,9 +139,9 @@ def _rolled_geom(spec: HashGridSpec, x: torch.Tensor, derivs: bool = True):
     ddsel = d2 sel/dx2 (scale chain included), both [L, B, 8, 3].
     """
     dev = x.device
-    scales = torch.tensor(spec.scales, dtype=x.dtype, device=dev)[:, None, None]
-    res = torch.tensor(spec.resolutions, dtype=torch.int64, device=dev)[:, None]
-    sizes = torch.tensor(spec.sizes, dtype=torch.int64, device=dev)[:, None]
+    scales = device_constant(spec.scales, x.dtype, dev)[:, None, None]
+    res = device_constant(spec.resolutions, torch.int64, dev)[:, None]
+    sizes = device_constant(spec.sizes, torch.int64, dev)[:, None]
     pos = x[None] * scales                                         # [L, B, 3]
     pg = torch.floor(pos)
     f = pos - pg
@@ -154,7 +155,7 @@ def _rolled_geom(spec: HashGridSpec, x: torch.Tensor, derivs: bool = True):
     # wrapping uint32 arithmetic
     base = torch.remainder(pgi[..., 0] + pgi[..., 1] * res + pgi[..., 2] * res * res,
                            sizes)
-    corner = torch.as_tensor(_CORNERS, device=dev) == 1.0          # [8, 3]
+    corner = device_constant(_CORNERS, torch.bool, dev)            # [8, 3]
     s4 = s[:, :, None, :]
     sel = torch.where(corner, s4, 1.0 - s4)                        # [L, B, 8, 3]
     if not derivs:
@@ -165,7 +166,7 @@ def _rolled_geom(spec: HashGridSpec, x: torch.Tensor, derivs: bool = True):
     else:
         ds = torch.ones_like(f)
         dds = torch.zeros_like(f)
-    signs = torch.as_tensor(_CORNERS * 2.0 - 1.0, dtype=x.dtype, device=dev)
+    signs = device_constant(_CORNERS * 2.0 - 1.0, x.dtype, dev)
     sc = scales[..., None, :]                                      # [L, 1, 1, 1]
     dsel = signs * ds[:, :, None, :] * sc
     ddsel = signs * dds[:, :, None, :] * (sc * sc)
@@ -395,13 +396,13 @@ def hash_grid_indices(spec: HashGridSpec, x: torch.Tensor) -> torch.Tensor:
     multiply/XOR and the sum, then reduced mod the level size: bit-equal.
     """
     dev = x.device
-    scales = torch.tensor(spec.scales, dtype=x.dtype, device=dev)[:, None, None]
+    scales = device_constant(spec.scales, x.dtype, dev)[:, None, None]
     pg = torch.floor(x[None] * scales).to(torch.int64)                # [L, B, 3]
-    cpos = pg[:, :, None, :] + torch.as_tensor(_CORNERS, device=dev).to(torch.int64)
-    res = torch.tensor(spec.resolutions, dtype=torch.int64, device=dev)[:, None, None]
-    sizes = torch.tensor(spec.sizes, dtype=torch.int64, device=dev)[:, None, None]
-    dense = torch.tensor([r**spec.input_dim <= s for r, s in
-                          zip(spec.resolutions, spec.sizes)], device=dev)[:, None, None]
+    cpos = pg[:, :, None, :] + device_constant(_CORNERS, torch.int64, dev)
+    res = device_constant(spec.resolutions, torch.int64, dev)[:, None, None]
+    sizes = device_constant(spec.sizes, torch.int64, dev)[:, None, None]
+    dense = device_constant([r**spec.input_dim <= s for r, s in
+                             zip(spec.resolutions, spec.sizes)], torch.bool, dev)[:, None, None]
     c0, c1, c2 = cpos.unbind(-1)                                     # [L, B, 8]
     idx_dense = (c0 + c1 * res + c2 * res * res) & _U32
     idx_hash = ((c0 * _PRIMES[0]) ^ (c1 * _PRIMES[1]) ^ (c2 * _PRIMES[2])) & _U32
@@ -418,16 +419,15 @@ def _hash_encode_impl(spec: HashGridSpec, x: torch.Tensor,
     L, C = spec.num_levels, spec.level_dim
     B = x.shape[0]
     idx = hash_grid_indices(spec, x)                                 # [L, B, 8]
-    scales = torch.tensor(spec.scales, dtype=x.dtype, device=x.device)[:, None, None]
+    scales = device_constant(spec.scales, x.dtype, x.device)[:, None, None]
     pos = x[None] * scales
     f = pos - torch.floor(pos)
     w = f * f * (3.0 - 2.0 * f) if spec.interpolation == "smoothstep" else f
-    corner = torch.as_tensor(_CORNERS, device=x.device) == 1.0       # [8, 3]
+    corner = device_constant(_CORNERS, torch.bool, x.device)         # [8, 3]
     w4 = w[:, :, None, :]
     wsel = torch.where(corner, w4, 1.0 - w4)                         # [L, B, 8, 3]
     weight = wsel[..., 0] * wsel[..., 1] * wsel[..., 2]              # [L, B, 8]
-    offsets = torch.tensor(spec.offsets[:-1], dtype=torch.int64,
-                           device=x.device)[:, None, None]
+    offsets = device_constant(spec.offsets[:-1], torch.int64, x.device)[:, None, None]
     vals = embeddings.index_select(0, (idx + offsets).reshape(-1))
     vals = vals.reshape(L, B, 8, C).to(x.dtype)
     out = (weight[..., None] * vals).sum(dim=2)                      # [L, B, C]

@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from envidr_tpu_torch import device_constant
+
 
 def _generalized_binomial_coeff(a: float, k: int) -> float:
     return float(np.prod(a - np.arange(k)) / math.factorial(k))
@@ -57,8 +59,8 @@ def ide_encode(xyz: torch.Tensor, roughness=0.0, *, deg_view: int = 4) -> torch.
         raise ValueError("Only deg_view <= 5 is numerically stable.")
     ml_array, mat, sigma = _ide_tables(deg_view)
     dt, dev = xyz.dtype, xyz.device
-    mat_t = torch.as_tensor(mat, dtype=dt, device=dev)          # [l_max+1, P]
-    sigma_t = torch.as_tensor(sigma, dtype=dt, device=dev)      # [P]
+    mat_t = device_constant(mat, dt, dev)                       # [l_max+1, P]
+    sigma_t = device_constant(sigma, dt, dev)                   # [P]
     l_max = mat.shape[0] - 1
 
     x, y, z = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
@@ -77,10 +79,11 @@ def ide_encode(xyz: torch.Tensor, roughness=0.0, *, deg_view: int = 4) -> torch.
     for _ in range(m_max):
         re_pows.append(re_pows[-1] * x - im_pows[-1] * y)
         im_pows.append(re_pows[-2] * y + im_pows[-1] * x)
-    m_idx = torch.as_tensor(ml_array[0], dtype=torch.long, device=dev)
+    m_idx = device_constant(ml_array[0], torch.long, dev)
     vmxy_re = torch.cat(re_pows, dim=-1).index_select(-1, m_idx)  # [..., P]
     vmxy_im = torch.cat(im_pows, dim=-1).index_select(-1, m_idx)
 
-    kappa_inv = torch.as_tensor(roughness, dtype=dt, device=dev)
+    kappa_inv = (torch.as_tensor(roughness, dtype=dt, device=dev)
+                 if isinstance(roughness, torch.Tensor) else device_constant(roughness, dt, dev))
     scaled_z = z_component * torch.exp(-sigma_t * kappa_inv)
     return torch.cat([vmxy_re * scaled_z, vmxy_im * scaled_z], dim=-1)

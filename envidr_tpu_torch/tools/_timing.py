@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import json
+import statistics
 import time
 from typing import Callable, Dict, List
 
@@ -18,7 +19,9 @@ L2_FLUSH_BYTES = 256 * 2**20
 def cuda_time(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:
     """Seconds per call of ``fn`` on the current CUDA device: CUDA events
     around each call, with a 256 MiB buffer zeroed between calls (outside the
-    events) to flush L2, averaged over ``iters`` calls after ``warmup``."""
+    events) to flush L2, the median of ``iters`` calls after ``warmup`` (a
+    host stall in one call would otherwise move a mean of 20 by its
+    twentieth)."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
@@ -32,7 +35,7 @@ def cuda_time(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> flo
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters / 1e3
+    return statistics.median(s.elapsed_time(e) for s, e in events) / 1e3
 
 
 def host_time(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:

@@ -6,15 +6,20 @@ Counterpart of ``envidr_tpu/train/trainer.py`` (scene mode):
   * Adam(0.9, 0.99, eps=1e-15) with the parameter groups lr/plr/slr/elr,
     each group's gradient clipped to global norm 10, and the learning rate
     decayed by ``0.1 ** (step / iters)`` where ``step`` counts the updates
-    applied (``trainer.py:82-108``);
-  * a step whose gradients are not all finite is skipped and counted in
-    :attr:`Trainer.notfinite` (``:105-108, :559-564``);
+    applied (``trainer.py:82-108``), written out as :class:`Adam`;
+  * a step whose gradients are not all finite leaves the parameters and
+    every optimizer state as they were (``optax.apply_if_finite``) and is
+    counted in :attr:`Trainer.notfinite` (``:105-108, :559-564``);
   * a per-step EMA of the parameters, decay 0.95 (``:543-546``), used by the
     eval render;
   * the occupancy grid refreshed every ``update_extra_interval`` steps, the
     first refresh before the first step (an empty grid gives no samples);
   * the sample budget K fixed per epoch from the running mean sample count
     (``sample_budget``, ``:314``).
+
+A step does not block the host: the finite check, the counters and the
+mean-count EMA stay on the device, and the host reads the EMA once, when an
+epoch chooses its K.  Only the grid refresh may synchronise.
 
 Error-map, patch and crop sampling, image batches, the indirect pass,
 sphere mode and checkpoints are not ported yet and raise.
@@ -63,15 +68,64 @@ def _unported(opt: Options):
     return [name for name, bad in checks.items() if bad]
 
 
-def make_optimizer(net: NeRFNetwork, opt: Options) -> torch.optim.Adam:
-    base = {"net": opt.lr, "grid": opt.plr or opt.lr, "scalar": opt.slr or opt.lr,
-            "env": opt.elr or opt.lr}
-    params = {k: [] for k in base}
-    for name, module in net.named_children():
-        params[_GROUP_OF.get(name, "net")].extend(module.parameters())
-    groups = [{"params": ps, "lr": base[k], "base_lr": base[k], "name": k}
-              for k, ps in params.items() if ps]
-    return torch.optim.Adam(groups, betas=(0.9, 0.99), eps=1e-15)
+class Adam:
+    """The optax chain of ``make_optimizer`` (``trainer.py:82-108``) for each
+    parameter group: clip to global norm 10, Adam(b1 0.9, b2 0.99, eps 1e-15),
+    scale by ``0.1 ** min(count / iters, 1)`` and by ``-lr``; the whole update
+    applied only if every gradient is finite (``optax.apply_if_finite``).
+
+    The finite flag, the moments and both counters stay on the device; each
+    state takes ``torch.where(finite, new, old)``, so a skipped update leaves
+    every tensor bit-equal.  A parameter without a gradient takes a zero one,
+    as in optax.
+    """
+
+    B1, B2, EPS = 0.9, 0.99, 1e-15
+
+    def __init__(self, net: NeRFNetwork, opt: Options, device: torch.device):
+        base = {"net": opt.lr, "grid": opt.plr or opt.lr, "scalar": opt.slr or opt.lr,
+                "env": opt.elr or opt.lr}
+        params = {k: [] for k in base}
+        for name, module in net.named_children():
+            params[_GROUP_OF.get(name, "net")].extend(module.parameters())
+        self.groups = [(base[k], ps) for k, ps in params.items() if ps]
+        self.iters = opt.iters
+        every = [p for _, ps in self.groups for p in ps]
+        self.m = [torch.zeros_like(p) for p in every]
+        self.v = [torch.zeros_like(p) for p in every]
+        self.count = torch.zeros((), dtype=torch.int64, device=device)     # applied
+        self.skipped = torch.zeros((), dtype=torch.int64, device=device)   # not finite
+
+    @torch.no_grad()
+    def step(self):
+        grads = [[p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
+                 for _, ps in self.groups]
+        finite = torch.stack([torch.isfinite(g).all() for gs in grads for g in gs]).all()
+        count = self.count + 1
+        bc1 = 1.0 - self.B1 ** count.float()
+        bc2 = 1.0 - self.B2 ** count.float()
+        decay = 0.1 ** torch.clamp(self.count.float() / self.iters, max=1.0)
+        i = 0
+        for (lr, ps), gs in zip(self.groups, grads):
+            m, v = self.m[i:i + len(ps)], self.v[i:i + len(ps)]
+            i += len(ps)
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+            gs = torch._foreach_mul(gs, torch.where(norm < CLIP_NORM, 1.0, CLIP_NORM / norm))
+            m_new = torch._foreach_add(torch._foreach_mul(gs, 1.0 - self.B1),
+                                       torch._foreach_mul(m, self.B1))
+            v_new = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(gs, gs),
+                                                          1.0 - self.B2),
+                                       torch._foreach_mul(v, self.B2))
+            den = torch._foreach_sqrt(torch._foreach_div(v_new, bc2))
+            torch._foreach_add_(den, self.EPS)
+            upd = torch._foreach_div(torch._foreach_div(m_new, bc1), den)
+            torch._foreach_mul_(upd, decay)
+            torch._foreach_mul_(upd, -lr)
+            p_new = torch._foreach_add(ps, upd)
+            for old, new in zip([*ps, *m, *v], [*p_new, *m_new, *v_new]):
+                torch.where(finite, new, old, out=old)
+        self.count += finite
+        self.skipped += ~finite
 
 
 class Trainer:
@@ -89,7 +143,7 @@ class Trainer:
         self.net = net.to(self.device)
         self.ema_net = copy.deepcopy(self.net).requires_grad_(False)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self.optimizer = make_optimizer(self.net, opt)
+        self.optimizer = Adam(self.net, opt, self.device)
         self.grid_spec = GridSpec(grid_size=128, bound=cfg.bound,
                                   density_thresh=opt.density_thresh, density_scale=1.0)
         self.grid = init_grid(self.grid_spec, self.device)
@@ -103,13 +157,23 @@ class Trainer:
                                       device=self.device)
         self.epoch = 0
         self.global_step = 0
-        self.applied_steps = 0        # updates applied (drives the lr decay)
-        self.notfinite = 0            # updates skipped for non-finite gradients
-        self.mean_count = -1.0
+        # running mean of samples per ray (< 0: none yet), f64 on the device
+        # so that it equals the reference's host EMA in Python floats
+        self.mean_count = torch.full((), -1.0, dtype=torch.float64, device=self.device)
         self._sched: Optional[StepSchedule] = None
         self._K = 0
         self._order: list = []
         self._images = None
+
+    @property
+    def applied_steps(self) -> torch.Tensor:
+        """Updates applied (drives the lr decay), a device tensor."""
+        return self.optimizer.count
+
+    @property
+    def notfinite(self) -> torch.Tensor:
+        """Updates skipped for non-finite gradients, a device tensor."""
+        return self.optimizer.skipped
 
     # ------------------------------------------------------------ grid
 
@@ -136,7 +200,8 @@ class Trainer:
             return self.opt.samples_budget
         cap = sched.early_stop_steps if sched.early_stop_steps > 0 \
             else min(sched.max_steps, 1024)
-        est = cap if self.mean_count <= 0 else int(self.mean_count * 1.5) + 8
+        mean_count = float(self.mean_count)              # the epoch's one read
+        est = cap if mean_count <= 0 else int(mean_count * 1.5) + 8
         # floor: a hard-pruned grid must not starve the thin surface shell
         floor = min(max(16, self.opt.min_samples_budget), max(cap, 16))
         k = floor
@@ -151,8 +216,9 @@ class Trainer:
         ms = sched.max_steps if sched else self.opt.max_steps
         cap = ess if ess > 0 else min(ms, 1024)
         K = min(K, max(cap, 16))
-        if self.opt.samples_budget <= 0 and self.mean_count > 0:
-            est = min(int(self.mean_count * 1.5) + 8, cap)
+        mean_count = float(self.mean_count)
+        if self.opt.samples_budget <= 0 and mean_count > 0:
+            est = min(int(mean_count * 1.5) + 8, cap)
             k = max(16, self.opt.min_samples_budget)
             while k < est:
                 k *= 2
@@ -169,6 +235,16 @@ class Trainer:
             rng = np.random.default_rng(self.opt.seed * 100003 + self.epoch)
             self._order = list(dataset.epoch_order(rng))
         return int(self._order.pop(0))
+
+    def _refreshes_grid(self) -> bool:
+        every = self._sched.update_extra_interval
+        return every > 0 and self.global_step % every == 0
+
+    def step_may_sync(self) -> bool:
+        """Whether the next :meth:`train_step` may block the host: only the
+        first step of an epoch (it reads the mean count to choose K) and a
+        grid-refresh step do."""
+        return not self._order or self._refreshes_grid()
 
     def forward_loss(self, rays_o, rays_d, gt_rgb, bg, alpha_mask, *, K: int,
                      sched: StepSchedule, noise: Optional[torch.Tensor] = None):
@@ -191,40 +267,26 @@ class Trainer:
 
     def _apply_update(self):
         """Skip-if-non-finite, per-group clip, decayed lr, Adam, EMA."""
-        params = [p for g in self.optimizer.param_groups for p in g["params"]
-                  if p.grad is not None]
-        finite = bool(torch.stack([torch.isfinite(p.grad).all() for p in params]).all())
-        if finite:
-            decay = 0.1 ** min(self.applied_steps / self.opt.iters, 1.0)
-            for group in self.optimizer.param_groups:
-                grads = [p.grad for p in group["params"] if p.grad is not None]
-                if grads:
-                    norm = torch.linalg.vector_norm(
-                        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-                    factor = torch.where(norm < CLIP_NORM, torch.ones_like(norm),
-                                         CLIP_NORM / norm)
-                    torch._foreach_mul_(grads, factor)
-                group["lr"] = group["base_lr"] * decay
-            self.optimizer.step()
-            self.applied_steps += 1
-        else:
-            self.notfinite += 1
-        self.optimizer.zero_grad(set_to_none=True)
+        self.optimizer.step()
+        for p in self.net.parameters():
+            p.grad = None
         with torch.no_grad():
-            for e, p in zip(self.ema_net.parameters(), self.net.parameters()):
-                e.lerp_(p, 1.0 - EMA_DECAY)
+            torch._foreach_lerp_(list(self.ema_net.parameters()),
+                                 list(self.net.parameters()), 1.0 - EMA_DECAY)
 
-    def train_step(self, dataset) -> Dict[str, float]:
-        """One step on the next image of the epoch's shuffled order."""
+    def train_step(self, dataset) -> Dict[str, object]:
+        """One step on the next image of the epoch's shuffled order: the loss,
+        its terms, the step's mean sample count and ``notfinite`` as detached
+        device tensors (nothing is read back), and the epoch's ``K``."""
         idx = self._next_index(dataset)
         sched, opt = self._sched, self.opt
-        if (sched.update_extra_interval > 0
-                and self.global_step % sched.update_extra_interval == 0):
+        if self._refreshes_grid():
             self.update_extra_state()
         if self._images is None or self._images[0] is not dataset:
-            self._images = (dataset, dataset.device_images(self.device))
-        images = self._images[1]
-        pose = torch.as_tensor(dataset.poses[idx], device=self.device)[None]
+            self._images = (dataset, dataset.device_images(self.device),
+                            torch.as_tensor(dataset.poses, device=self.device))
+        _, images, poses = self._images
+        pose = poses[idx][None]
         rays = sampled_rays(self.generator, pose, dataset.intrinsics, dataset.H,
                             dataset.W, sched.num_rays)
         rays_o, rays_d, inds = rays["rays_o"][0], rays["rays_d"][0], rays["inds"][0]
@@ -248,13 +310,12 @@ class Trainer:
                                              K=self._K, sched=sched, noise=noise)
         loss.backward()
         self._apply_update()
-        mc = float(out["counts"].float().mean())
-        self.mean_count = mc if self.mean_count < 0 else 0.9 * self.mean_count + 0.1 * mc
+        mc = out["counts"].float().mean()
+        prev = torch.as_tensor(self.mean_count, dtype=torch.float64, device=self.device)
+        self.mean_count = torch.where(prev < 0, mc.double(), 0.9 * prev + 0.1 * mc.double())
         self.global_step += 1
-        metrics = {k: float(v) for k, v in terms.items()}
-        metrics.update(loss=float(loss.detach()), mean_count=mc, notfinite=self.notfinite,
-                       K=self._K)
-        return metrics
+        return {**terms, "loss": loss.detach(), "mean_count": mc,
+                "notfinite": self.notfinite.clone(), "K": self._K}
 
     # ------------------------------------------------------------ eval
 

@@ -80,6 +80,37 @@ def test_compositing_matches(T_thresh):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-6)
 
 
+def test_compositing_gradients_match():
+    """The transmittance's cumprod backward skips torch's test for zeros (it
+    reads a flag back to the host); the gradients still match JAX's, with
+    saturated samples (alpha = 1, a factor of 1e-15) included, and equal
+    torch's own cumprod backward bit for bit."""
+    rng = np.random.default_rng(4)
+    sig = rng.uniform(0, 30, (40, 24)).astype(np.float32)
+    sig[:5, 3] = 1e6
+    dts = rng.uniform(0.001, 0.05, (40, 24)).astype(np.float32)
+    rgb = rng.uniform(0, 1, (40, 24, 3)).astype(np.float32)
+    z = np.cumsum(dts, axis=-1).astype(np.float32)
+    proj = rng.standard_normal(3).astype(np.float32)
+
+    def jax_loss(s, c):
+        _, depth, img, _ = jcomp.composite_rays(s, c, jnp.asarray(dts), jnp.asarray(z))
+        return (img @ jnp.asarray(proj)).sum() + depth.sum()
+
+    ref = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(sig), jnp.asarray(rgb))
+    s, c = T(sig).requires_grad_(), T(rgb).requires_grad_()
+    _, depth, img, _ = tcomp.composite_rays(s, c, T(dts), T(z))
+    ((img @ T(proj)).sum() + depth.sum()).backward()
+    for a, b in zip(ref, (s.grad, c.grad)):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=1e-5 * np.abs(a).max())
+    x = (T(rng.uniform(1e-15, 1, (40, 24)).astype(np.float32))).requires_grad_()
+    g = T(rng.standard_normal((40, 24)).astype(np.float32))
+    (ours,) = torch.autograd.grad(tcomp._CumprodNoZeros.apply(x), x, g)
+    (torchs,) = torch.autograd.grad(torch.cumprod(x, dim=-1), x, g)
+    assert torch.equal(ours, torchs)
+
+
 @pytest.mark.parametrize("fraction", [1, 4])
 def test_update_grid_matches(fraction):
     """A density that is constant per cell makes the jitter irrelevant: the

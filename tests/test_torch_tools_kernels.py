@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from envidr_tpu_torch.ops import _cuda, gather, scatter
+from envidr_tpu_torch.tools import scatter_edges
 from test_torch_helpers import load_tool_functions
 
 B, S, S_SMALL, W = 8192, 8192, 1024, 16
@@ -183,3 +184,13 @@ def test_kernels_match_plain_on_card(cuda_device, data):
         ref = plain()
         atol = BF16_ORDER_RTOL * float(ref.abs().max()) if atol is None else atol
         assert float((out - ref).abs().max()) <= atol, lib.symbol
+    # the tiled scatter's edge shapes (one slot, empty buckets, fewer rows
+    # than tiles, S no multiple of the tile or below one, W = 4 and 8, int64
+    # indices, each side of the direct/tiled rule), through each design
+    edges = [c for c in scatter_edges.cases(cuda_device) if c.kernel == "scatter_rows_tiled"]
+    assert edges
+    for c in edges:
+        ref = c.plain()
+        atol = BF16_ORDER_RTOL * float(ref.abs().max()) if c.atol is None else c.atol
+        for path in c.paths:
+            assert float((c.run(path) - ref).abs().max()) <= atol, (c.name, path)

@@ -4,6 +4,7 @@ optimizer update, and the same in-memory scene as tools/gen_synth_scene.py."""
 
 import importlib.util
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -190,3 +191,57 @@ def test_in_memory_scene_matches_generator(tmp_path):
     np.testing.assert_array_equal(ours.images, ref.images)
     np.testing.assert_array_equal(ours.poses, ref.poses)
     assert ours.intrinsics == ref.intrinsics and (ours.H, ours.W, ours.C) == (ref.H, ref.W, ref.C)
+
+
+def test_non_finite_update_leaves_every_state_bit_equal():
+    """After one applied update (so the moments are not zero), a non-finite
+    one leaves the parameters, both moments and both counters as they were."""
+    (_, _, params), (topt, tcfg, net) = shared_model(seed=13)
+    tr = Trainer(topt, tcfg, device="cpu", net=net)
+    g = jax.tree.map(lambda a: np.full_like(a, 0.5), params)
+    _torch_layout_grads(tr.net, g)
+    tr._apply_update()
+    adam = tr.optimizer
+    state = [t.clone() for t in (*tr.net.parameters(), *adam.m, *adam.v,
+                                 adam.count, adam.skipped)]
+    assert int(adam.count) == 1 and any(bool(m.ne(0).any()) for m in adam.m)
+    g["encoder"]["embeddings"][0, 0] = np.inf
+    _torch_layout_grads(tr.net, g)
+    tr._apply_update()
+    after = [*tr.net.parameters(), *adam.m, *adam.v, adam.count]
+    for a, b in zip(state, after):
+        assert torch.equal(a, b)
+    assert int(tr.notfinite) == 1 and int(tr.applied_steps) == 1
+
+
+def test_device_mean_count_ema_and_next_epoch_budget_match_host_formula():
+    """The EMA kept on the device equals the reference's host EMA in Python
+    floats (trainer.py:662), and the next epoch chooses the K that the host
+    value gives."""
+    (_, _, _), (topt, tcfg, net) = shared_model(seed=14)
+    ds = SynthSpheres("train", size=24, n=2, scale=topt.scale)
+    tr = Trainer(topt, tcfg, device="cpu", net=net)
+    host = -1.0
+    for step in range(3):                    # the third step starts epoch 2
+        mc = float(tr.train_step(ds)["mean_count"])
+        if step == 2:
+            assert tr.epoch == 2
+            assert tr._K == Trainer.sample_budget(SimpleNamespace(opt=topt, mean_count=host),
+                                                  tr._sched)
+        host = mc if host < 0 else 0.9 * host + 0.1 * mc
+        assert tr.mean_count.dtype == torch.float64 and float(tr.mean_count) == host
+
+
+def test_train_step_returns_device_tensors():
+    (_, _, _), (topt, tcfg, net) = shared_model(seed=15)
+    ds = SynthSpheres("train", size=24, n=2, scale=topt.scale)
+    tr = Trainer(topt, tcfg, device="cpu", net=net)
+    m = tr.train_step(ds)
+    assert set(m) == {"color", "mask", "eikonal", "loss", "mean_count", "notfinite", "K"}
+    for k, v in m.items():
+        if k == "K":
+            assert isinstance(v, int) and v == tr._K
+        else:
+            assert isinstance(v, torch.Tensor) and not v.requires_grad, k
+            assert v.device.type == "cpu" and v.dim() == 0, k
+    assert tr.step_may_sync() is False       # second step: no epoch start, no refresh
