@@ -12,11 +12,9 @@ seconds:
            path gives it (the train step for scatter_add_rows, the
            micro-benchmarks' shapes for the others), with CUDA-event times of
            the kernel, the plain version and, where there is one, a single
-           library call computing the same function, beside the bound, and
-           for the scatters the times of both designs (direct and tiled);
-           then both designs from 0.5 to 4096 rows a slot (the readings
-           behind the scatters' rule), readings of the bf16 accumulator's
-           summation-order noise and the scatters' edge shapes
+           library call computing the same function, beside the bound (the
+           kernel's median and mean of 20 launches); then readings of the bf16
+           accumulator's summation-order noise and the scatters' edge shapes
            (envidr_tpu_torch.tools.scatter_edges)
   parity   a small model, one train-step loss and its gradients on the card
            (through the kernels) against the same step on the CPU (plain
@@ -110,27 +108,18 @@ def build_all():
     return {src.stem: s for src, s in zip(by_source, secs)}
 
 
-def design_readings(designs):
-    """ms of each design of a scatter (``designs(path)``), timed in turns
-    direct, tiled, tiled, direct (CUDA events, L2 flushed)."""
-    from envidr_tpu_torch.tools._timing import cuda_time
-    ms = {"direct": [], "tiled": []}
-    for path in ("direct", "tiled", "tiled", "direct"):
-        ms[path].append(cuda_time(lambda: designs(path), 20, 3) * 1e3)
-    return {path: sum(v) / len(v) for path, v in ms.items()}
-
-
 def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbytes,
-                 tol, bench_rows=None, designs=None):
+                 tol, bench_rows=None):
     """One kernel against its plain version on the same inputs, then timed
-    (CUDA events, L2 flushed) beside its plain version, the library call
-    (``(name, fn)`` or None) and the bytes bound.  ``tol`` is an absolute
-    tolerance or a callable of the plain result.  ``bench_rows`` is
-    ``(micro-benchmark, row-name pattern)``: the rows that launch this kernel
-    for this table row.  ``designs`` (a scatter's call by path) also times
-    both designs of the scatter, each checked first."""
+    (CUDA events, L2 flushed; the kernel's median, ``ms``, and mean of the
+    same 20 launches) beside its plain version, the library call (``(name,
+    fn)`` or None) and the bytes bound.  ``tol`` is an absolute tolerance or a
+    callable of the plain result.  ``bench_rows`` is ``(micro-benchmark,
+    row-name pattern)``: the rows that launch this kernel for this table
+    row."""
+    import statistics
     import torch
-    from envidr_tpu_torch.tools._timing import cuda_time
+    from envidr_tpu_torch.tools._timing import cuda_time, cuda_times
     out = run()
     torch.cuda.synchronize()
     ref = plain()
@@ -139,15 +128,8 @@ def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbyt
     if not err <= tol:
         raise AssertionError(f"{kernel} ({shape}) disagrees with its plain version: "
                              f"max_abs_err={err} > {tol}")
-    design_ms = None
-    if designs is not None:
-        for path in ("direct", "tiled"):
-            e = float((designs(path) - ref).abs().max())
-            if not e <= tol:
-                raise AssertionError(f"{kernel} ({shape}), {path} design: "
-                                     f"max_abs_err={e} > {tol}")
-        design_ms = design_readings(designs)
-    ms = cuda_time(run, 20, 3) * 1e3
+    times = cuda_times(run, 20, 3)
+    ms, mean_ms = statistics.median(times) * 1e3, statistics.fmean(times) * 1e3
     plain_ms = cuda_time(plain, 20, 3) * 1e3
     library_ms = None if library is None else cuda_time(library[1], 20, 3) * 1e3
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -159,12 +141,11 @@ def check_kernel(row, kernel, source, replaces, shape, run, plain, library, nbyt
               "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
               "row": row, "shape": shape, "tolerance": tol,
               "library": None if library is None else library[0], "bench_rows": bench_rows,
-              "design_ms": design_ms}
+              "mean_ms": mean_ms}
     phase("kernels", f"row {row} {kernel} ok", shape=repr(shape), max_abs_err=err,
-          tol=tol, ms=ms, plain_ms=plain_ms,
+          tol=tol, ms=ms, mean_ms=mean_ms, plain_ms=plain_ms,
           library_ms="none" if library_ms is None else library_ms,
-          library=repr(result["library"]), bound_ms=bound_ms,
-          **({} if design_ms is None else {f"{k}_ms": v for k, v in design_ms.items()}))
+          library=repr(result["library"]), bound_ms=bound_ms)
     return result
 
 
@@ -186,13 +167,12 @@ def check_scatter(spec, B: int, W: int):
         return torch.zeros((L * s_max, W), device="cuda").index_add_(0, flat_idx, flat_rows)
 
     return check_kernel(
-        "1", "scatter_add_rows", "envidr_tpu_torch/csrc/scatter_add_rows.cu",
+        "1", "scatter_add_rows", "envidr_tpu_torch/csrc/scatter_rows.cu",
         "envidr_tpu/ops/pallas_scatter.py:64", f"L={L} B={B} W={W} S_max={s_max}",
         lambda: scatter.scatter_add_rows(idx, rows, s_max),
         lambda: scatter.scatter_add_rows_plain(idx, rows, s_max),
         ("index_add_", library), L * B * 4 + L * B * W * 4 + L * s_max * W * 4,
-        SCATTER_ATOL, designs=lambda path: scatter.scatter_add_rows(idx, rows, s_max,
-                                                                    path=path))
+        SCATTER_ATOL)
 
 
 def check_bench_kernels():
@@ -208,8 +188,7 @@ def check_bench_kernels():
     idx_s = idx % Ss
     table_s = table[:Ss].contiguous()
     gsrc = "envidr_tpu_torch/csrc/gather_rows.cu"
-    ssrc = "envidr_tpu_torch/csrc/scatter_add_rows.cu"
-    tsrc = "envidr_tpu_torch/csrc/scatter_rows_tiled.cu"
+    ssrc = "envidr_tpu_torch/csrc/scatter_rows.cu"
     bf16, f32 = torch.bfloat16, torch.float32
 
     def gather_bytes(i):        # index, the distinct rows it touches, output
@@ -244,64 +223,34 @@ def check_bench_kernels():
         lambda: scatter.scatter_add_rows(idx[None], rows[None], S, round_bf16=True),
         lambda: scatter.scatter_add_rows_plain(idx[None], rows[None], S, round_bf16=True),
         None, scatter_bytes(S), FEW_ROWS_ATOL,
-        named("bench_scatter", "pallas one-hot MXU scatter S=2^19"),
-        lambda path: scatter.scatter_add_rows(idx[None], rows[None], S, True, path)))
+        named("bench_scatter", "pallas one-hot MXU scatter S=2^19")))
     out.append(check_kernel(
-        "6", "scatter_rows_tiled<f32>", tsrc, "tools/bench_scatter.py:324",
+        "6", "scatter_rows_tiled<f32>", ssrc, "tools/bench_scatter.py:324",
         f"idx [{B}], rows [{B},{W}] -> [{Ss},{W}]",
         lambda: scatter.scatter_rows_tiled(idx_s, rows, Ss),
         lambda: scatter.scatter_rows_tiled_plain(idx_s, rows, Ss),
         index_add(idx_s, Ss), scatter_bytes(Ss), SCATTER_ATOL,
-        named("bench_scatter", f"pallas fori scatter (S={Ss} VMEM)"),
-        lambda path: scatter.scatter_rows_tiled(idx_s, rows, Ss, path=path)))
+        named("bench_scatter", f"pallas fori scatter (S={Ss} VMEM)")))
     for s_lvl in (4096, 32768, 131072):
         i = idx % s_lvl
         out.append(check_kernel(
-            "7", "scatter_rows_tiled<f32>", tsrc, "tools/bench_scatter2.py:126",
+            "7", "scatter_rows_tiled<f32>", ssrc, "tools/bench_scatter2.py:126",
             f"idx [{B}], rows [{B},{W}] -> [{s_lvl},{W}]",
             lambda: scatter.scatter_rows_tiled(i, rows, s_lvl),
             lambda: scatter.scatter_rows_tiled_plain(i, rows, s_lvl),
             index_add(i, s_lvl), scatter_bytes(s_lvl), SCATTER_ATOL,
-            ("bench_scatter2", rf"pallas fori S={s_lvl} K=\d+ acc \(\d+MB\)"),
-            lambda path: scatter.scatter_rows_tiled(i, rows, s_lvl, path=path)))
+            ("bench_scatter2", rf"pallas fori S={s_lvl} K=\d+ acc \(\d+MB\)")))
     for acc, name in ((f32, "scatter_rows_tiled<f32>"), (bf16, "scatter_rows_tiled<bf16>")):
         out.append(check_kernel(
-            "8", name, tsrc, "tools/bench_gs4.py:51",
+            "8", name, ssrc, "tools/bench_gs4.py:51",
             f"idx [{B}], rows [{B},{W}] -> [{S},{W}], {str(acc)[6:]} accumulator",
             lambda: scatter.scatter_rows_tiled(idx, rows, S, acc),
             lambda: scatter.scatter_rows_tiled_plain(idx, rows, S, acc),
             index_add(idx, S) if acc == f32 else None, scatter_bytes(S),
             FEW_ROWS_ATOL if acc == f32
             else (lambda ref: BF16_ACC_RTOL * float(ref.abs().max())),
-            ("bench_gs4", rf"tiled pallas n=\d+ K=\d+ {str(acc)[6:]} *\(\d+MB\)"),
-            lambda path: scatter.scatter_rows_tiled(idx, rows, S, acc, path)))
+            ("bench_gs4", rf"tiled pallas n=\d+ K=\d+ {str(acc)[6:]} *\(\d+MB\)")))
     return out
-
-
-def rule_readings():
-    """Readings behind ops/scatter.py:scatter_plan's rule: both designs of
-    scatter_rows_tiled<f32> at B = 262,144 rows into tables of 2^19 down to 64
-    rows (0.5 to 4096 rows a slot), each checked against its plain version,
-    timed in turns (CUDA events, L2 flushed)."""
-    import torch
-    from envidr_tpu_torch.ops import scatter
-
-    B, W = BENCH["B"], BENCH["W"]
-    for S in (1 << 19, 4096, 512, 128, 64):
-        g = torch.Generator(device="cuda").manual_seed(2)
-        idx = torch.randint(0, S, (B,), device="cuda", generator=g, dtype=torch.int32)
-        rows = torch.randn(B, W, device="cuda", generator=g)
-        ref = scatter.scatter_rows_tiled_plain(idx, rows, S)
-        def designs(path, idx=idx, rows=rows, S=S):
-            return scatter.scatter_rows_tiled(idx, rows, S, path=path)
-
-        errs = {p: float((designs(p) - ref).abs().max()) for p in ("direct", "tiled")}
-        if not max(errs.values()) <= SCATTER_ATOL:
-            raise AssertionError(f"rule reading S={S}: {errs} > {SCATTER_ATOL}")
-        ms = design_readings(designs)
-        phase("kernels", "rule reading", S=S, rows_per_slot=B / S,
-              rule="direct" if scatter.scatter_plan(1, B, S, W).direct else "tiled",
-              direct_ms=ms["direct"], tiled_ms=ms["tiled"], max_abs_err=max(errs.values()))
 
 
 def bf16_accumulator_readings():
@@ -461,7 +410,6 @@ def main() -> int:
     K0 = opt.early_stop_steps                        # the first epoch's budget
     rows = [check_scatter(cfg.hash_spec, B=opt.num_rays * K0, W=8 * cfg.level_dim)]
     rows += check_bench_kernels()
-    rule_readings()
     bf16_accumulator_readings()
     edges = scatter_edges.run(log=lambda line: phase("kernels", "edge", line))
     phase("kernels", "edge shapes ok", checks=len(edges))

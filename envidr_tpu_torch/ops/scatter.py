@@ -2,10 +2,9 @@
 
 :func:`scatter_add_rows` is the counterpart of
 ``envidr_tpu/ops/pallas_scatter.py:scatter_add_rows`` (the Pallas TPU kernel,
-body ``_kernel`` :45-61).  The kernel is ``csrc/scatter_add_rows.cu``: one
-launcher call computes ``idx [L, B] i32 x rows [L, B, W] f32 -> out
-[L, S_max, W] f32`` for all levels at once, as one flat scatter into
-``[L * S_max, W]``.
+body ``_kernel`` :45-61).  One launcher call computes ``idx [L, B] i32 x
+rows [L, B, W] f32 -> out [L, S_max, W] f32`` for all levels at once, as one
+flat scatter into ``[L * S_max, W]``.
 
 What bounds it on an H100: bytes.  It reads ``L*B*(4 + 4W)`` bytes and writes
 ``L*S_max*W*4``; at the train step's shape (L=16, B=262,144, W=16,
@@ -13,142 +12,58 @@ S_max=2^19) that is ~822 MB, ~0.25 ms at 3.35 TB/s.
 
 The TPU sizing helpers (``fits_vmem``, ``_pick_K``) size VMEM accumulators
 and have no counterpart here: under ``hash_scatter_impl='mixed'`` every level
-takes this kernel.  With ``round_bf16`` the same source's second entry point
-rounds each row value to bf16 before the f32 add: the counterpart of
+takes this kernel.  With ``round_bf16`` the second entry point rounds each
+row value to bf16 before the f32 add: the counterpart of
 ``tools/bench_scatter.py:287`` ``s_pallas_onehot``.
 
-:func:`scatter_rows_tiled` (``csrc/scatter_rows_tiled.cu``) is the one-level
-scatter ``[B] x [B, W] -> [S, W]`` with an f32 or a bf16 accumulator: the
-counterpart of the micro-benchmarks' Pallas scatters
-``tools/bench_scatter.py:324`` ``s_pallas_fori``,
+:func:`scatter_rows_tiled` is the one-level scatter ``[B] x [B, W] -> [S, W]``
+with an f32 or a bf16 accumulator: the counterpart of the micro-benchmarks'
+Pallas scatters ``tools/bench_scatter.py:324`` ``s_pallas_fori``,
 ``tools/bench_scatter2.py:126`` ``make_pallas_multi`` and
-``tools/bench_gs4.py:51`` ``make_tiled``.  Bound: bytes, ``B*(4 + 4W)`` read
-and ``S*W*4`` written.
+``tools/bench_gs4.py:51`` ``make_tiled`` (its name is theirs; the kernel does
+not tile).  Bound: bytes, ``B*(4 + 4W)`` read and ``S*W*4`` written.
 
-Both sources are ``csrc/scatter_common.cuh`` with its two designs, the
-direct vector-atomic path and the tiled path (a counting sort by output
-tile, then one shared-memory sum and one write per tile);
-:func:`scatter_plan` chooses one and sizes it.  A launcher call makes one
-memset and one kernel a level (direct) or one memset and four kernels
-(tiled) and counts as one launch.
+Every entry point is ``csrc/scatter_rows.cu``: the output zeroed level by
+level just before one 16-byte vector atomic per quarter row adds into it.
+A launcher call makes one memset and one kernel launch a level and counts
+as one launch.
 
 Build and launch: ``ops/_cuda.py``.  A CUDA tensor always takes the kernel;
-if the build or the launch fails the wrapper raises.  A CPU tensor takes the plain version
-(:func:`scatter_add_rows_plain`, :func:`scatter_rows_tiled_plain`).
+if the build or the launch fails the wrapper raises.  A CPU tensor takes the
+plain version (:func:`scatter_add_rows_plain`, :func:`scatter_rows_tiled_plain`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
-from typing import NamedTuple, Optional
 
 import torch
 
 from envidr_tpu_torch.ops._cuda import CudaLibrary, launch, on_card
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCE = _CSRC / "scatter_add_rows.cu"
-TILED_SOURCE = _CSRC / "scatter_rows_tiled.cu"
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "scatter_rows.cu"
 
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
 KERNEL = CudaLibrary(SOURCE, "scatter_add_rows_launch", _ARGS)
 KERNEL_BF16 = CudaLibrary(SOURCE, "scatter_add_rows_round_bf16_launch", _ARGS)
-TILED = {torch.float32: CudaLibrary(TILED_SOURCE, "scatter_rows_tiled_f32_launch", _ARGS),
-         torch.bfloat16: CudaLibrary(TILED_SOURCE, "scatter_rows_tiled_bf16_launch", _ARGS)}
-
-TILE_BYTES = 48 * 1024      # shared memory of one output tile: up to 4 tiles
-                            # an SM
-CHUNK_ROWS = 2048           # rows of one accumulate work item
-BLOCK_ITEMS = 8192          # most rows of one hist / place block (512 threads x 16)
-SORT_BLOCKS = 128           # hist / place blocks to aim for: about one an SM
-DIRECT_MAX_ROWS_PER_SLOT = 2048   # the rule's threshold, see scatter_plan
-SMEM_BYTES = 227 * 1024     # shared memory a Hopper block may use
+TILED = {torch.float32: CudaLibrary(SOURCE, "scatter_rows_tiled_f32_launch", _ARGS),
+         torch.bfloat16: CudaLibrary(SOURCE, "scatter_rows_tiled_bf16_launch", _ARGS)}
 _INT32_MAX = 2**31 - 1
 
 
-class ScatterPlan(NamedTuple):
-    """How one call runs (``csrc/scatter_common.cuh``)."""
-    direct: bool        # vector atomics into a zeroed output
-    tile_rows: int      # output rows of a tile (tiled path)
-    n_tiles: int        # tiles over the L * S flat output rows
-    chunk_rows: int     # rows of one accumulate work item
-    block_items: int    # rows of one hist / place block
-    hist_bins: int      # tiles one hist / place block may touch
-
-    def scratch_ints(self, rows: int) -> int:
-        """int32 scratch of the tiled path: (row, row in tile) pairs, then
-        counts, offsets, chunk offsets, split tiles and their count, and the
-        tile of each work item."""
-        if self.direct:
-            return 0
-        return 2 * rows + 5 * self.n_tiles + 3 + -(-rows // self.chunk_rows)
-
-
-@functools.lru_cache(maxsize=256)
-def scatter_plan(L: int, B: int, S: int, W: int, acc_dtype=torch.float32,
-                 path: Optional[str] = None) -> ScatterPlan:
-    """Choose and size the design of a scatter of ``L`` levels of ``B`` rows
-    of width ``W`` into ``L`` tables of ``S`` rows.
-
-    The rule: the direct path while a level's table has at least one slot
-    for every ``DIRECT_MAX_ROWS_PER_SLOT`` rows (``B <= 2048 S``), the tiled
-    path for denser tables, with either accumulator.  On an H100 (PERF.md)
-    the direct path was 1.3-2.5x faster from 0.5 to 2048 rows a slot
-    (one level of 128 to 2^19 rows) and 1.2x at the train step's 16 levels;
-    at 4096 rows a slot (S = 64) its atomics contend for a few addresses and
-    the tiled path, which sums each tile in shared memory, was slightly
-    ahead.  ``path`` ("direct" or "tiled") forces a design, for those
-    readings and for tests.
-
-    Tiles hold as many rows as fit in ``TILE_BYTES`` (a row padded by one
-    32-bit word), evened out over the flat output.  A hist / place block
-    takes at most ``BLOCK_ITEMS <= B`` rows, so it spans at most two levels
-    and touches at most ``hist_bins`` consecutive tiles from its first
-    level's first tile.
-    """
-    if path not in (None, "direct", "tiled"):
-        raise ValueError(f"unknown scatter path {path!r}")
-    if acc_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"accumulator must be float32 or bfloat16, got {acc_dtype}")
-    if W % 4:
-        raise ValueError(f"row width {W} is not a multiple of 4 (float4 loads)")
-    if L * B > _INT32_MAX or L * S > _INT32_MAX:
-        raise ValueError(f"{L} x {B} rows into {L} x {S} exceeds 32-bit row indices")
-    f32 = acc_dtype == torch.float32
-    direct = path == "direct" or (path is None and B <= DIRECT_MAX_ROWS_PER_SLOT * S)
-    if direct:
-        return ScatterPlan(True, 0, 0, 0, 0, 0)
-    acc_bytes = 4 if f32 else 2
-    row_bytes = (W + 4 // acc_bytes) * acc_bytes
-    most = TILE_BYTES // row_bytes
-    if most < 1:
-        raise ValueError(f"a row of width {W} does not fit a {TILE_BYTES}-byte tile")
-    rows = L * S
-    n_tiles = -(-rows // most)
-    tile_rows = -(-rows // n_tiles)
-    # enough blocks to fill the card, each with a few rows a thread
-    block_items = max(1, min(BLOCK_ITEMS, B, max(1024, -(-L * B // SORT_BLOCKS))))
-    hist_bins = n_tiles if L == 1 else min(n_tiles, -(-2 * S // tile_rows) + 1)
-    # the scan block holds every count; a place block its bins' counts and
-    # starts and its rows staged (12 bytes each)
-    if max(n_tiles * 4, 8 * hist_bins + 8 + 12 * block_items) + 1024 > SMEM_BYTES:
-        raise ValueError(f"{n_tiles} tiles exceed a block's shared memory")
-    return ScatterPlan(False, tile_rows, n_tiles, CHUNK_ROWS, block_items, hist_bins)
-
-
 def _launch_scatter(lib: CudaLibrary, name: str, idx: torch.Tensor, rows: torch.Tensor,
-                    out: torch.Tensor, S: int, acc_dtype, path: Optional[str]):
+                    out: torch.Tensor, S: int):
     """Launch ``lib`` on ``idx [L, B]`` and ``rows [L, B, W]`` into ``out``."""
     L, B, W = rows.shape
-    plan = scatter_plan(L, B, S, W, acc_dtype, path)
+    if W % 4:
+        raise ValueError(f"{name}: row width {W} is not a multiple of 4 (16-byte atomics)")
+    if B > _INT32_MAX or S > _INT32_MAX:
+        raise ValueError(f"{name}: {B} rows into {S} slots exceeds 32-bit indices")
     idx = idx.to(torch.int32).contiguous()
     rows = rows.contiguous()
-    scratch = torch.empty(plan.scratch_ints(L * B), dtype=torch.int32, device=rows.device)
     launch(lib, name, rows.device, idx.data_ptr(), rows.data_ptr(), out.data_ptr(),
-           scratch.data_ptr(), L, B, S, W, int(plan.direct), plan.tile_rows, plan.n_tiles,
-           plan.chunk_rows, plan.block_items, plan.hist_bins)
+           L, B, S, W)
     return out
 
 
@@ -178,13 +93,12 @@ def scatter_add_rows_plain(idx: torch.Tensor, rows: torch.Tensor,
 
 
 def scatter_add_rows(idx: torch.Tensor, rows: torch.Tensor, s_max: int,
-                     round_bf16: bool = False, path: Optional[str] = None) -> torch.Tensor:
+                     round_bf16: bool = False) -> torch.Tensor:
     """``[L, B]`` indices x ``[L, B, W]`` f32 rows -> ``[L, S_max, W]`` f32.
 
     Indices of level ``l`` must lie in ``[0, S_l)`` with ``S_l <= s_max`` (the
     hash encoder makes them mod the level size); the kernel does not check.
     ``round_bf16`` rounds each row value to bf16 (nearest even) first.
-    ``path`` forces a design (:func:`scatter_plan`).
     """
     _check(idx, rows, s_max)
     if not on_card("scatter_add_rows", idx, rows):
@@ -192,7 +106,7 @@ def scatter_add_rows(idx: torch.Tensor, rows: torch.Tensor, s_max: int,
     L, _, W = rows.shape
     out = torch.empty((L, s_max, W), dtype=torch.float32, device=rows.device)
     return _launch_scatter(KERNEL_BF16 if round_bf16 else KERNEL, "scatter_add_rows",
-                           idx, rows, out, s_max, torch.float32, path)
+                           idx, rows, out, s_max)
 
 
 def _check_tiled(idx: torch.Tensor, rows: torch.Tensor, S: int, acc_dtype):
@@ -219,13 +133,13 @@ def scatter_rows_tiled_plain(idx: torch.Tensor, rows: torch.Tensor, S: int,
 
 
 def scatter_rows_tiled(idx: torch.Tensor, rows: torch.Tensor, S: int,
-                       acc_dtype=torch.float32, path: Optional[str] = None) -> torch.Tensor:
+                       acc_dtype=torch.float32) -> torch.Tensor:
     """``[B]`` indices in ``[0, S)`` x ``[B, W]`` f32 rows -> ``[S, W]`` f32,
     summed in ``acc_dtype`` (float32 or bfloat16); the kernel does not check
-    the indices.  ``path`` forces a design (:func:`scatter_plan`)."""
+    the indices."""
     _check_tiled(idx, rows, S, acc_dtype)
     if not on_card("scatter_rows_tiled", idx, rows):
         return scatter_rows_tiled_plain(idx, rows, S, acc_dtype)
     out = torch.empty((S, rows.shape[1]), dtype=torch.float32, device=rows.device)
     return _launch_scatter(TILED[acc_dtype], "scatter_rows_tiled", idx[None], rows[None],
-                           out, S, acc_dtype, path)
+                           out, S)

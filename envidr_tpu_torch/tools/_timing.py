@@ -16,12 +16,10 @@ from envidr_tpu_torch.ops._cuda import launch_counts
 L2_FLUSH_BYTES = 256 * 2**20
 
 
-def cuda_time(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:
-    """Seconds per call of ``fn`` on the current CUDA device: CUDA events
-    around each call, with a 256 MiB buffer zeroed between calls (outside the
-    events) to flush L2, the median of ``iters`` calls after ``warmup`` (a
-    host stall in one call would otherwise move a mean of 20 by its
-    twentieth)."""
+def cuda_times(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> List[float]:
+    """Seconds of each of ``iters`` calls of ``fn`` on the current CUDA device
+    after ``warmup``: CUDA events around each call, with a 256 MiB buffer
+    zeroed between calls (outside the events) to flush L2."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
@@ -35,7 +33,13 @@ def cuda_time(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> flo
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events) / 1e3
+    return [s.elapsed_time(e) / 1e3 for s, e in events]
+
+
+def cuda_time(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:
+    """The median of :func:`cuda_times` (a host stall in one call would move
+    a mean of 20 by its twentieth)."""
+    return statistics.median(cuda_times(fn, iters, warmup))
 
 
 def host_time(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:

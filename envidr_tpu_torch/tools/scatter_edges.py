@@ -3,14 +3,14 @@
     python3 -m envidr_tpu_torch.tools.scatter_edges
 
 ``scatter_rows_tiled`` (one level) and ``scatter_add_rows`` (several levels)
-at the shapes where the tiled path's bookkeeping could go wrong: one slot
-taking every row, empty buckets, fewer rows than tiles, a table that is no
-multiple of the tile or smaller than one, levels of different sizes, blocks
-that straddle two levels, row widths 4 and 8, int64 indices, and shapes on
-each side of the direct/tiled rule.  Every case runs through both designs
-and, last, through the rule's own pick.  The padding rows of ``scatter_add_rows`` must
-stay exactly zero.  On the CPU both sides are the plain version; the
-structure and the plans are still checked.
+at the shapes where the kernel's indexing or its level-by-level zeroing
+could go wrong: one slot taking every row (every atomic on one address),
+rows that hit a narrow range (the rest of the output must come out zero),
+fewer rows than the grid has threads, a table of odd size or of a few rows,
+2048 rows a slot, no rows at all, levels of different sizes, row widths 4
+and 8, int64 indices and a bf16 accumulator.  The padding rows of ``scatter_add_rows``
+must stay exactly zero.  On the CPU both sides are the plain version; the
+cases are still built and run.
 """
 
 from __future__ import annotations
@@ -33,11 +33,9 @@ BF16_ACC_RTOL = 2.0**-5         # of max |sum|: bf16 sums of a few rows a slot (
 class Case(NamedTuple):
     name: str
     kernel: str                            # "scatter_rows_tiled" | "scatter_add_rows"
-    run: Callable[[Optional[str]], torch.Tensor]   # path -> kernel output
+    run: Callable[[], torch.Tensor]        # the kernel's output
     plain: Callable[[], torch.Tensor]
-    paths: tuple                           # designs forced, then None (the rule)
     atol: Optional[float]                  # None: BF16_ACC_RTOL of max |sum|
-    plan: Callable[[Optional[str]], scatter.ScatterPlan]
     padding: Optional[List[int]] = None    # scatter_add_rows: each level's size
 
 
@@ -47,12 +45,10 @@ def _tiled(name, S, B, W=16, idx=None, acc=torch.float32, idx_dtype=np.int32,
     idx = rng.integers(0, S, B) if idx is None else idx
     i = torch.from_numpy(np.asarray(idx).astype(idx_dtype)).to(device)
     rows = torch.from_numpy(rng.standard_normal((B, W), dtype=np.float32)).to(device)
-    f32 = acc == torch.float32
     return Case(name, "scatter_rows_tiled",
-                lambda path: scatter.scatter_rows_tiled(i, rows, S, acc, path),
+                lambda: scatter.scatter_rows_tiled(i, rows, S, acc),
                 lambda: scatter.scatter_rows_tiled_plain(i, rows, S, acc),
-                ("direct", "tiled", None), F32_ATOL if f32 else None,
-                lambda path: scatter.scatter_plan(1, B, S, W, acc, path))
+                F32_ATOL if acc == torch.float32 else None)
 
 
 def _levels(name, sizes, s_max, B, W=16, idx=None, round_bf16=False, idx_dtype=np.int32,
@@ -61,14 +57,11 @@ def _levels(name, sizes, s_max, B, W=16, idx=None, round_bf16=False, idx_dtype=n
     if idx is None:
         idx = np.stack([rng.integers(0, s, B) for s in sizes])
     i = torch.from_numpy(np.asarray(idx).astype(idx_dtype)).to(device)
-    L = len(sizes)
-    rows = torch.from_numpy(rng.standard_normal((L, B, W), dtype=np.float32)).to(device)
+    rows = torch.from_numpy(rng.standard_normal((len(sizes), B, W), dtype=np.float32)).to(device)
     return Case(name, "scatter_add_rows",
-                lambda path: scatter.scatter_add_rows(i, rows, s_max, round_bf16, path),
+                lambda: scatter.scatter_add_rows(i, rows, s_max, round_bf16),
                 lambda: scatter.scatter_add_rows_plain(i, rows, s_max, round_bf16),
-                ("direct", "tiled", None), F32_ATOL,
-                lambda path: scatter.scatter_plan(L, B, s_max, W, torch.float32, path),
-                list(sizes))
+                F32_ATOL, list(sizes))
 
 
 def cases(device="cuda") -> List[Case]:
@@ -77,59 +70,56 @@ def cases(device="cuda") -> List[Case]:
         _tiled("one slot takes every row", 4096, 2560, idx=np.full(2560, 7), **kw),
         _tiled("one slot takes every row, bf16", 4096, 16, idx=np.full(16, 7),
                acc=torch.bfloat16, **kw),
-        _tiled("fewer rows than tiles", S19, 500, **kw),
-        _tiled("fewer rows than tiles, bf16", S19, 500, acc=torch.bfloat16, **kw),
-        _tiled("empty buckets", S19, 8192,
+        _tiled("few rows, large table", S19, 500, **kw),
+        _tiled("few rows, large table, bf16", S19, 500, acc=torch.bfloat16, **kw),
+        _tiled("rows hit a narrow range", S19, 8192,
                idx=np.random.default_rng(1).integers(S19 // 2, S19 // 2 + 100, 8192), **kw),
-        _tiled("empty buckets, bf16", S19, 8192, acc=torch.bfloat16,
+        _tiled("rows hit a narrow range, bf16", S19, 8192, acc=torch.bfloat16,
                idx=np.random.default_rng(1).integers(S19 // 2, S19 // 2 + 8192, 8192), **kw),
-        _tiled("S no multiple of the tile", 100_003, 65536, **kw),
-        _tiled("S no multiple of the tile, bf16", 100_003, 65536, acc=torch.bfloat16, **kw),
-        _tiled("S smaller than a tile", 100, 6400, **kw),
+        _tiled("odd table size", 100_003, 65536, **kw),
+        _tiled("odd table size, bf16", 100_003, 65536, acc=torch.bfloat16, **kw),
+        _tiled("table of 100 rows", 100, 6400, **kw),
         _tiled("W = 4", 8192, 8192, W=4, **kw),
         _tiled("W = 8", 8192, 8192, W=8, **kw),
         _tiled("W = 8, bf16", 8192, 8192, W=8, acc=torch.bfloat16, **kw),
         _tiled("int64 indices", 8192, 8192, idx_dtype=np.int64, **kw),
-        _tiled("rule: 2048 rows a slot", 128, 262_144, **kw),
-        _tiled("rule: 2065 rows a slot", 127, 262_144, **kw),
+        _tiled("2048 rows a slot", 128, 262_144, **kw),
         _levels("one slot a level takes every row", [100, 5000, 70_000], 70_001, 2560,
                 idx=np.array([[3] * 2560, [4999] * 2560, [0] * 2560]), **kw),
-        _levels("fewer rows than tiles", [100, 5000, 1 << 18], 1 << 18, 300, **kw),
-        _levels("blocks straddle levels", [100, 5000, 1 << 18], 1 << 18, 10_000, **kw),
-        _levels("blocks straddle levels, W = 4", [100, 5000, 1 << 18], 1 << 18, 10_000,
+        _levels("few rows, levels of different sizes", [100, 5000, 1 << 18], 1 << 18, 300,
+                **kw),
+        _levels("levels of different sizes", [100, 5000, 1 << 18], 1 << 18, 10_000, **kw),
+        _levels("levels of different sizes, W = 4", [100, 5000, 1 << 18], 1 << 18, 10_000,
                 W=4, **kw),
-        _levels("blocks straddle levels, W = 8, int64", [100, 5000, 1 << 18], 1 << 18,
+        _levels("levels of different sizes, W = 8, int64", [100, 5000, 1 << 18], 1 << 18,
                 10_000, W=8, idx_dtype=np.int64, **kw),
+        _levels("no rows", [100, 5000], 5000, 0, **kw),
         _levels("round_bf16", [8192], 8192, 8192, round_bf16=True, **kw),
     ]
 
 
 def run(device="cuda", log: Callable[[str], None] = print) -> List[dict]:
-    """Every case through each of its designs; raises on the first
-    disagreement, else returns one record per (case, design)."""
+    """Every case against its plain version; raises on the first
+    disagreement, else returns one record per case."""
     out = []
     for c in cases(device):
         ref = c.plain()
         tol = c.atol if c.atol is not None else BF16_ACC_RTOL * float(ref.abs().max())
-        for path in c.paths:
-            plan = c.plan(path)
-            got = c.run(path)
-            err = float((got - ref).abs().max())
-            pad = 0.0
-            if c.padding:
-                pad = max([float(got[l, s:].abs().max()) if s < got.shape[1] else 0.0
-                           for l, s in enumerate(c.padding)])
-            ok = err <= tol and pad == 0.0
-            rec = {"kernel": c.kernel, "case": c.name, "path": path or "rule",
-                   "design": "direct" if plan.direct else "tiled",
-                   "n_tiles": plan.n_tiles, "max_abs_err": err, "tol": tol,
-                   "padding_max": pad, "ok": ok}
-            log(" ".join(f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"
-                         for k, v in rec.items()))
-            if not ok:
-                raise AssertionError(f"{c.kernel} {c.name!r} ({rec['design']}) disagrees "
-                                     f"with its plain version: {rec}")
-            out.append(rec)
+        got = c.run()
+        err = float((got - ref).abs().max())
+        pad = 0.0
+        if c.padding:
+            pad = max([float(got[l, s:].abs().max()) if s < got.shape[1] else 0.0
+                       for l, s in enumerate(c.padding)])
+        ok = err <= tol and pad == 0.0
+        rec = {"kernel": c.kernel, "case": c.name, "max_abs_err": err, "tol": tol,
+               "padding_max": pad, "ok": ok}
+        log(" ".join(f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"
+                     for k, v in rec.items()))
+        if not ok:
+            raise AssertionError(f"{c.kernel} {c.name!r} disagrees with its plain "
+                                 f"version: {rec}")
+        out.append(rec)
     return out
 
 

@@ -90,93 +90,37 @@ def test_wrapper_rejects_bad_input(bad):
 def test_library_path_is_keyed_by_source():
     p = scatter.KERNEL.library_path()
     assert p.parent == _cuda.BUILD_DIR and p.suffix == ".so"
-    assert p.name.startswith("scatter_add_rows-")
+    assert p.name.startswith("scatter_rows-")
 
 
 def test_library_key_covers_included_headers(tmp_path):
-    """An edit to a header that a source includes with quotes must give the
-    source a new library, or a stale one would be loaded from _build/."""
-    shutil.copytree(scatter.SOURCE.parent, tmp_path / "csrc")
-    lib = _cuda.CudaLibrary(tmp_path / "csrc" / scatter.SOURCE.name, "unused", [])
+    """An edit to a header that a source includes with quotes, directly or
+    through another header, must give the source a new library, or a stale
+    one would be loaded from _build/."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(scatter.SOURCE.parent, csrc)
+    source = csrc / scatter.SOURCE.name
+    source.write_bytes(b'#include "common.cuh"\n' + source.read_bytes())
+    (csrc / "common.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("#pragma once\n")
+    lib = _cuda.CudaLibrary(source, "unused", [])
     _cuda.LIBRARIES.remove(lib)
     before = lib.library_path()
-    (tmp_path / "csrc" / "gather_rows.cu").write_text("// not included\n")
+    (csrc / "gather_rows.cu").write_text("// not included\n")
     assert lib.library_path() == before
-    header = tmp_path / "csrc" / "scatter_common.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    (csrc / "inner.cuh").write_text("#pragma once\n// edited\n")
     assert lib.library_path() != before
-    assert lib.library_path().name.startswith("scatter_add_rows-")
-
-
-def _emulated_bins(plan, L, B, S, idx):
-    """The tile bin of each row as the hist / place kernels compute it,
-    relative to their block's first tile."""
-    flat = (np.arange(L, dtype=np.int64)[:, None] * S + idx).reshape(-1)
-    e0 = np.arange(L * B) // plan.block_items * plan.block_items
-    return flat // plan.tile_rows - (e0 // B) * S // plan.tile_rows
-
-
-@pytest.mark.parametrize("L,B,S,W,acc", [
-    (16, 262_144, 1 << 19, 16, "float32"),      # the train step's shape
-    (1, 262_144, 1 << 19, 16, "bfloat16"),      # row 8, bf16 accumulator
-    (1, 262_144, 131_073, 16, "float32"),       # rows 6-7, forced tiled
-    (3, 10_000, 1 << 18, 4, "float32"),         # blocks straddle two levels
-    (3, 300, 1 << 18, 8, "float32"),            # fewer rows than tiles
-    (2, 7, 100, 16, "float32"),                 # a table smaller than a tile
-])
-def test_tiled_plan_covers_every_row_once_and_fits(L, B, S, W, acc):
-    acc = getattr(torch, acc)
-    plan = scatter.scatter_plan(L, B, S, W, acc, "tiled")
-    assert not plan.direct
-    rows = L * S
-    # tiles [t*T, min((t+1)*T, rows)) partition the flat output: each row once
-    assert plan.n_tiles * plan.tile_rows >= rows > (plan.n_tiles - 1) * plan.tile_rows
-    row_bytes = (W + (1 if acc == torch.float32 else 2)) * (4 if acc == torch.float32 else 2)
-    assert plan.tile_rows * row_bytes <= scatter.TILE_BYTES
-    assert plan.hist_bins <= plan.n_tiles
-    assert max(plan.n_tiles * 4, 8 * plan.hist_bins + 8 + 12 * plan.block_items) \
-        + 1024 <= scatter.SMEM_BYTES
-    assert plan.block_items <= min(scatter.BLOCK_ITEMS, B)
-    # every row's bin lies in its block's histogram, for the last and the
-    # first slot of each level and for random slots
-    rng = np.random.default_rng(0)
-    for idx in (np.full((L, B), S - 1), np.zeros((L, B), np.int64),
-                rng.integers(0, S, (L, B))):
-        bins = _emulated_bins(plan, L, B, S, idx)
-        assert bins.min() >= 0 and bins.max() < plan.hist_bins
-    assert plan.scratch_ints(L * B) == (2 * L * B + 5 * plan.n_tiles + 3
-                                        + -(-L * B // plan.chunk_rows))
-
-
-def test_plan_rule_and_limits():
-    f32, bf16 = torch.float32, torch.bfloat16
-    for L, S in ((1, 4096), (1, 131_073), (16, 1 << 19), (1, 128)):   # rows 6-8, row 1
-        for acc in (f32, bf16):
-            assert scatter.scatter_plan(L, 262_144, S, 16, acc).direct
-    for acc in (f32, bf16):                     # more than 2048 rows a slot
-        assert not scatter.scatter_plan(1, 262_144, 127, 16, acc).direct
-        assert not scatter.scatter_plan(1, 262_144, 64, 16, acc).direct
-    assert not scatter.scatter_plan(16, 262_144, 1 << 19, 16, f32, "tiled").direct
-    assert scatter.scatter_plan(1, 262_144, 4096, 16, f32, "direct").scratch_ints(10) == 0
-    assert scatter.scatter_plan(1, 8, 8, 16, bf16, "direct").direct
-    for args, kw in (((1, 8, 8, 6, f32), {}),
-                     ((1, 8, 8, 16, f32), {"path": "sorted"}),
-                     ((1, 8, 8, 16, torch.float16), {}),
-                     ((1, 2**31, 8, 16, f32), {})):
-        with pytest.raises((TypeError, ValueError)):
-            scatter.scatter_plan(*args, **kw)
+    assert lib.library_path().name.startswith("scatter_rows-")
 
 
 def test_edge_sweep_runs_on_cpu():
-    """The card's edge-shape sweep builds every case and plan; on the CPU both
+    """The card's edge-shape sweep builds and runs every case; on the CPU both
     sides are the plain version."""
     recs = scatter_edges.run("cpu", log=lambda line: None)
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in recs)
+    assert len(recs) == len(scatter_edges.cases("cpu"))
     kernels = {r["kernel"] for r in recs}
     assert kernels == {"scatter_rows_tiled", "scatter_add_rows"}
-    rule = {r["case"]: r["design"] for r in recs if r["path"] == "rule"}
-    assert rule["rule: 2048 rows a slot"] == "direct"
-    assert rule["rule: 2065 rows a slot"] == "tiled"
 
 
 @pytest.fixture
@@ -201,17 +145,13 @@ def test_kernel_matches_plain_on_card(cuda_device):
     ref = scatter.scatter_add_rows_plain(idx_t, rows_t, spec.s_max)
     # atomics add in another order than index_add_: f32 rounding of ~16-row sums
     assert float((out - ref).abs().max()) <= 1e-4
-    for path in ("direct", "tiled"):
-        out = scatter.scatter_add_rows(idx_t, rows_t, spec.s_max, path=path)
-        assert float((out - ref).abs().max()) <= 1e-4, path
-    # the edge shapes (one slot per level, fewer rows than tiles, blocks that
-    # straddle levels, W = 4 and 8, int64 indices), each design, padding zero
+    # the edge shapes (one slot per level, few rows, levels of different
+    # sizes, W = 4 and 8, int64 indices, no rows), padding zero
     edges = [c for c in scatter_edges.cases(cuda_device) if c.kernel == "scatter_add_rows"]
     assert edges
     for c in edges:
         ref = c.plain()
-        for path in c.paths:
-            out = c.run(path)
-            assert float((out - ref).abs().max()) <= c.atol, (c.name, path)
-            for l, size in enumerate(c.padding):
-                assert torch.count_nonzero(out[l, size:]) == 0, (c.name, path)
+        out = c.run()
+        assert float((out - ref).abs().max()) <= c.atol, c.name
+        for l, size in enumerate(c.padding):
+            assert torch.count_nonzero(out[l, size:]) == 0, c.name

@@ -144,11 +144,12 @@ def test_wrappers_reject_bad_input(fn, bad):
 
 def test_libraries_are_keyed_by_source():
     for lib, stem in ((gather.KERNEL, "gather_rows"),
-                      (scatter.TILED[torch.float32], "scatter_rows_tiled"),
-                      (scatter.KERNEL_BF16, "scatter_add_rows")):
+                      (scatter.TILED[torch.float32], "scatter_rows"),
+                      (scatter.KERNEL_BF16, "scatter_rows")):
         p = lib.library_path()
         assert p.parent == _cuda.BUILD_DIR and p.name.startswith(stem + "-")
     assert gather.KERNEL.library_path() == gather.KERNEL_BF16.library_path()
+    assert scatter.KERNEL.library_path() == scatter.TILED[torch.bfloat16].library_path()
 
 
 @pytest.fixture
@@ -184,13 +185,11 @@ def test_kernels_match_plain_on_card(cuda_device, data):
         ref = plain()
         atol = BF16_ORDER_RTOL * float(ref.abs().max()) if atol is None else atol
         assert float((out - ref).abs().max()) <= atol, lib.symbol
-    # the tiled scatter's edge shapes (one slot, empty buckets, fewer rows
-    # than tiles, S no multiple of the tile or below one, W = 4 and 8, int64
-    # indices, each side of the direct/tiled rule), through each design
+    # the one-level scatter's edge shapes (one slot, a narrow range, few
+    # rows, odd and tiny tables, W = 4 and 8, int64 indices, 2048 rows a slot)
     edges = [c for c in scatter_edges.cases(cuda_device) if c.kernel == "scatter_rows_tiled"]
     assert edges
     for c in edges:
         ref = c.plain()
         atol = BF16_ORDER_RTOL * float(ref.abs().max()) if c.atol is None else c.atol
-        for path in c.paths:
-            assert float((c.run(path) - ref).abs().max()) <= atol, (c.name, path)
+        assert float((c.run() - ref).abs().max()) <= atol, c.name
