@@ -13,8 +13,10 @@ seconds:
            micro-benchmarks' shapes for the others), with CUDA-event times of
            the kernel, the plain version and, where there is one, a single
            library call computing the same function, beside the bound (the
-           kernel's median and mean of 20 launches); then readings of the bf16
-           accumulator's summation-order noise and the scatters' edge shapes
+           kernel's median and mean of 20 launches), after the timer's floor
+           (an empty launch and a zero_() of the gathers' output, same
+           timer); then readings of the bf16 accumulator's summation-order
+           noise and the scatters' edge shapes
            (envidr_tpu_torch.tools.scatter_edges)
   parity   a small model, one train-step loss and its gradients on the card
            (through the kernels) against the same step on the CPU (plain
@@ -173,6 +175,33 @@ def check_scatter(spec, B: int, W: int):
         lambda: scatter.scatter_add_rows_plain(idx, rows, s_max),
         ("index_add_", library), L * B * 4 + L * B * W * 4 + L * s_max * W * 4,
         SCATTER_ATOL)
+
+
+def launch_floor():
+    """The timing harness's floor (the kernels phase's timer): an empty kernel
+    launched through the gathers' ctypes and launch path, and ``zero_()`` of
+    the gathers' ``[B, W]`` f32 output, which writes its bytes and nothing
+    else.  Median and mean of 20, as check_kernel times a kernel."""
+    import statistics
+    import torch
+    from envidr_tpu_torch.ops import _cuda, gather
+    from envidr_tpu_torch.tools._timing import cuda_times
+
+    dev = torch.device("cuda")
+    out = torch.empty((BENCH["B"], BENCH["W"]), device=dev)
+    before = gather.EMPTY.launches
+    readings = {}
+    for name, fn in (("empty_launch", lambda: _cuda.launch(gather.EMPTY, "empty", dev,
+                                                          0, 0, 0, 0, 0, 0, 0)),
+                     ("zero_out", out.zero_)):
+        times = cuda_times(fn, 20, 3)
+        readings[f"{name}_ms"] = statistics.median(times) * 1e3
+        readings[f"{name}_mean_ms"] = statistics.fmean(times) * 1e3
+    readings = {k: readings[k] for k in sorted(readings, key=lambda k: "mean" in k)}
+    if gather.EMPTY.launches != before + 23:
+        raise AssertionError("the empty kernel did not go through the launch path")
+    phase("kernels", "floor", **readings)
+    return readings
 
 
 def check_bench_kernels():
@@ -409,6 +438,7 @@ def main() -> int:
     cfg = network_config(opt)
     K0 = opt.early_stop_steps                        # the first epoch's budget
     rows = [check_scatter(cfg.hash_spec, B=opt.num_rays * K0, W=8 * cfg.level_dim)]
+    launch_floor()
     rows += check_bench_kernels()
     bf16_accumulator_readings()
     edges = scatter_edges.run(log=lambda line: phase("kernels", "edge", line))

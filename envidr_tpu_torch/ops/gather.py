@@ -28,9 +28,15 @@ from envidr_tpu_torch.ops._cuda import CudaLibrary, launch, on_card
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gather_rows.cu"
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-         ctypes.c_int64, ctypes.c_void_p]
+         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+# the designs compared (csrc/gather_rows.cu: bit 0 async, else the register
+# design's variant flags F_*)
+DESIGNS = {"registers": 0, "async": 1, "registers_wb": 2, "registers_64": 4,
+           "registers_l1": 8, "registers_evict": 16, "registers_prefetch": 32}
 KERNEL = CudaLibrary(SOURCE, "gather_rows_f32_launch", _ARGS)
 KERNEL_BF16 = CudaLibrary(SOURCE, "gather_rows_round_bf16_launch", _ARGS)
+# an empty kernel on the same interface: the floor of a timed launch
+EMPTY = CudaLibrary(SOURCE, "gather_rows_empty_launch", _ARGS)
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor):
@@ -52,7 +58,7 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor,
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
-                round_bf16: bool = False) -> torch.Tensor:
+                round_bf16: bool = False, design: str = "registers") -> torch.Tensor:
     """``[S, W]`` f32 table x ``[B]`` indices in ``[0, S)`` -> ``[B, W]`` f32;
     with ``round_bf16`` each value is rounded to bf16 (nearest even) and
     widened back.  The kernel does not check the indices."""
@@ -60,11 +66,19 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     if not on_card("gather_rows", table, idx):
         return gather_rows_plain(table, idx, round_bf16)
     B, W = idx.shape[0], table.shape[1]
-    if W % 4:
-        raise ValueError(f"row width {W} is not a multiple of 4 (float4 loads)")
+    if W % 4 or W == 0:
+        raise ValueError(f"row width {W} is not a positive multiple of 4 (16-byte rows)")
+    if B * W >= 2**31 or table.shape[0] >= 2**31:
+        raise ValueError(f"{B} x {W} outputs from {table.shape[0]} rows: the kernel's "
+                         "offsets are 32-bit")
     table = table.contiguous()
+    if table.data_ptr() % 16:
+        raise ValueError("the table is not 16-byte aligned (16-byte loads)")
     idx = idx.to(torch.int32).contiguous()
     out = torch.empty((B, W), dtype=torch.float32, device=table.device)
+    if B == 0:
+        return out
     launch(KERNEL_BF16 if round_bf16 else KERNEL, "gather_rows", table.device,
-           table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, W)
+           table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, W, table.shape[0],
+           DESIGNS[design])
     return out

@@ -1,4 +1,5 @@
-"""Edge shapes of the two scatter kernels, each against its plain version.
+"""Edge shapes of the scatter and gather kernels, each against its plain
+version.
 
     python3 -m envidr_tpu_torch.tools.scatter_edges
 
@@ -9,8 +10,12 @@ rows that hit a narrow range (the rest of the output must come out zero),
 fewer rows than the grid has threads, a table of odd size or of a few rows,
 2048 rows a slot, no rows at all, levels of different sizes, row widths 4
 and 8, int64 indices and a bf16 accumulator.  The padding rows of ``scatter_add_rows``
-must stay exactly zero.  On the CPU both sides are the plain version; the
-cases are still built and run.
+must stay exactly zero.  ``gather_rows`` (both instantiations) at no rows,
+one row, row counts that are not a multiple of a warp's 32 or a block's 256,
+row widths 4, 8, 12 and 32 (the generic instantiation), int64 indices, every
+index equal, indices reaching S - 1 and a 2^19-row table; a gather is exact.
+On the CPU both sides are the plain version; the cases are still built and
+run.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from envidr_tpu_torch.ops import scatter
+from envidr_tpu_torch.ops import gather, scatter
 
 F32_ATOL = 1e-3                 # f32 sums of up to ~64 unit-normal rows a slot
                                 # (~2,600 in the one-slot cases, |sum| ~ 50), added
@@ -32,7 +37,7 @@ BF16_ACC_RTOL = 2.0**-5         # of max |sum|: bf16 sums of a few rows a slot (
 
 class Case(NamedTuple):
     name: str
-    kernel: str                            # "scatter_rows_tiled" | "scatter_add_rows"
+    kernel: str                    # "scatter_rows_tiled" | "scatter_add_rows" | "gather_rows"
     run: Callable[[], torch.Tensor]        # the kernel's output
     plain: Callable[[], torch.Tensor]
     atol: Optional[float]                  # None: BF16_ACC_RTOL of max |sum|
@@ -62,6 +67,47 @@ def _levels(name, sizes, s_max, B, W=16, idx=None, round_bf16=False, idx_dtype=n
                 lambda: scatter.scatter_add_rows(i, rows, s_max, round_bf16),
                 lambda: scatter.scatter_add_rows_plain(i, rows, s_max, round_bf16),
                 F32_ATOL, list(sizes))
+
+
+# gather shapes: {name: overrides of S=4096, B=8192, W=16, indices drawn from
+# [low, S) (default 0), int32, f32 output}; "same": every index S - 1
+GATHER_CASES = {
+    "gather, no rows": dict(B=0),
+    "gather, one row": dict(B=1),
+    "gather, 1000 rows (not a multiple of 32 or 256)": dict(B=1000),
+    "gather, 100003 rows, 2^19-row table, round_bf16": dict(S=1 << 19, B=100_003,
+                                                           round_bf16=True),
+    "gather, W = 4": dict(W=4),
+    "gather, W = 8, round_bf16": dict(W=8, round_bf16=True),
+    "gather, W = 12": dict(W=12, B=8195),
+    "gather, W = 32": dict(W=32, B=8200),
+    "gather, int64 indices": dict(idx_dtype=np.int64),
+    "gather, every index equal": dict(same=True),
+    "gather, indices reaching S - 1": dict(S=100_003, low=100_003 - 100),
+    "gather, 2^19-row table": dict(S=1 << 19, B=262_144),
+    "gather, 2^19-row table, round_bf16": dict(S=1 << 19, B=262_144, round_bf16=True),
+}
+
+
+def gather_inputs(name: str, seed: int = 0):
+    """(table [S, W] f32, idx [B], round_bf16) of one gather case, numpy."""
+    c = {**dict(S=4096, B=8192, W=16, low=0, idx_dtype=np.int32, same=False,
+                round_bf16=False), **GATHER_CASES[name]}
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((c["S"], c["W"]), dtype=np.float32)
+    idx = rng.integers(c["low"], c["S"], c["B"])
+    if c["same"]:
+        idx[:] = c["S"] - 1
+    elif c["B"]:
+        idx[-1] = c["S"] - 1                  # the last table row is read
+    return table, idx.astype(c["idx_dtype"]), c["round_bf16"]
+
+
+def gather_case(name: str, device="cuda") -> Case:
+    table, idx, rnd = gather_inputs(name)
+    t, i = torch.from_numpy(table).to(device), torch.from_numpy(idx).to(device)
+    return Case(name, "gather_rows", lambda: gather.gather_rows(t, i, rnd),
+                lambda: gather.gather_rows_plain(t, i, rnd), 0.0)
 
 
 def cases(device="cuda") -> List[Case]:
@@ -95,6 +141,7 @@ def cases(device="cuda") -> List[Case]:
                 10_000, W=8, idx_dtype=np.int64, **kw),
         _levels("no rows", [100, 5000], 5000, 0, **kw),
         _levels("round_bf16", [8192], 8192, 8192, round_bf16=True, **kw),
+        *(gather_case(name, device) for name in GATHER_CASES),
     ]
 
 
@@ -106,12 +153,12 @@ def run(device="cuda", log: Callable[[str], None] = print) -> List[dict]:
         ref = c.plain()
         tol = c.atol if c.atol is not None else BF16_ACC_RTOL * float(ref.abs().max())
         got = c.run()
-        err = float((got - ref).abs().max())
+        err = float((got - ref).abs().max()) if ref.numel() else 0.0
         pad = 0.0
         if c.padding:
             pad = max([float(got[l, s:].abs().max()) if s < got.shape[1] else 0.0
                        for l, s in enumerate(c.padding)])
-        ok = err <= tol and pad == 0.0
+        ok = got.shape == ref.shape and err <= tol and pad == 0.0
         rec = {"kernel": c.kernel, "case": c.name, "max_abs_err": err, "tol": tol,
                "padding_max": pad, "ok": ok}
         log(" ".join(f"{k}={v!r}" if isinstance(v, str) else f"{k}={v}"

@@ -120,7 +120,7 @@ def test_edge_sweep_runs_on_cpu():
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in recs)
     assert len(recs) == len(scatter_edges.cases("cpu"))
     kernels = {r["kernel"] for r in recs}
-    assert kernels == {"scatter_rows_tiled", "scatter_add_rows"}
+    assert kernels == {"scatter_rows_tiled", "scatter_add_rows", "gather_rows"}
 
 
 @pytest.fixture

@@ -106,6 +106,22 @@ def test_tiled_scatter_matches_pallas(data, n_tiles, K, acc):
     np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("name", list(scatter_edges.GATHER_CASES))
+def test_gather_edge_shape_matches_jnp_take(name):
+    """Each gather edge shape of the card's sweep, built and run on the CPU
+    (plain version), against ``jnp.take`` of the same numpy inputs; a gather
+    is exact, rounded or not."""
+    table, idx, round_bf16 = scatter_edges.gather_inputs(name)
+    case = scatter_edges.gather_case(name, "cpu")
+    ours, plain = case.run(), case.plain()
+    assert ours.shape == plain.shape == (idx.shape[0], table.shape[1])
+    assert torch.equal(ours, plain)
+    ref = jnp.take(jnp.asarray(table), jnp.asarray(idx), axis=0)
+    if round_bf16:
+        ref = ref.astype(jnp.bfloat16).astype(jnp.float32)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
 def test_cpu_tensors_take_plain_versions_and_count_nothing(data):
     idx, rows, table = data
     libs = [gather.KERNEL, gather.KERNEL_BF16, scatter.KERNEL_BF16, *scatter.TILED.values()]
@@ -186,10 +202,14 @@ def test_kernels_match_plain_on_card(cuda_device, data):
         atol = BF16_ORDER_RTOL * float(ref.abs().max()) if atol is None else atol
         assert float((out - ref).abs().max()) <= atol, lib.symbol
     # the one-level scatter's edge shapes (one slot, a narrow range, few
-    # rows, odd and tiny tables, W = 4 and 8, int64 indices, 2048 rows a slot)
-    edges = [c for c in scatter_edges.cases(cuda_device) if c.kernel == "scatter_rows_tiled"]
+    # rows, odd and tiny tables, W = 4 and 8, int64 indices, 2048 rows a
+    # slot) and the gather's (exact: atol 0)
+    edges = [c for c in scatter_edges.cases(cuda_device)
+             if c.kernel in ("scatter_rows_tiled", "gather_rows")]
     assert edges
     for c in edges:
         ref = c.plain()
         atol = BF16_ORDER_RTOL * float(ref.abs().max()) if c.atol is None else c.atol
-        assert float((c.run() - ref).abs().max()) <= atol, c.name
+        out = c.run()
+        assert out.shape == ref.shape, c.name
+        assert ref.numel() == 0 or float((out - ref).abs().max()) <= atol, c.name
