@@ -16,7 +16,7 @@ seconds:
            kernel's median and mean of 20 launches), after the timer's floor
            (an empty launch and a zero_() of the gathers' output, same
            timer); then readings of the bf16 accumulator's summation-order
-           noise and the scatters' edge shapes
+           noise and the scatters' and gathers' edge shapes
            (envidr_tpu_torch.tools.scatter_edges)
   parity   a small model, one train-step loss and its gradients on the card
            (through the kernels) against the same step on the CPU (plain
@@ -190,18 +190,14 @@ def launch_floor():
     dev = torch.device("cuda")
     out = torch.empty((BENCH["B"], BENCH["W"]), device=dev)
     before = gather.EMPTY.launches
-    readings = {}
-    for name, fn in (("empty_launch", lambda: _cuda.launch(gather.EMPTY, "empty", dev,
-                                                          0, 0, 0, 0, 0, 0, 0)),
-                     ("zero_out", out.zero_)):
-        times = cuda_times(fn, 20, 3)
-        readings[f"{name}_ms"] = statistics.median(times) * 1e3
-        readings[f"{name}_mean_ms"] = statistics.fmean(times) * 1e3
-    readings = {k: readings[k] for k in sorted(readings, key=lambda k: "mean" in k)}
+    times = {name: cuda_times(fn, 20, 3) for name, fn in (
+        ("empty_launch", lambda: _cuda.launch(gather.EMPTY, "empty", dev, 0, 0, 0, 0, 0)),
+        ("zero_out", out.zero_))}
     if gather.EMPTY.launches != before + 23:
         raise AssertionError("the empty kernel did not go through the launch path")
+    readings = {**{f"{k}_ms": statistics.median(t) * 1e3 for k, t in times.items()},
+                **{f"{k}_mean_ms": statistics.fmean(t) * 1e3 for k, t in times.items()}}
     phase("kernels", "floor", **readings)
-    return readings
 
 
 def check_bench_kernels():

@@ -18,21 +18,18 @@
 // PFLOP at the bench shape) is not carried over.
 //
 // Bound: bytes (the index, the table rows the indices touch, the output).
-// Both designs walk the output in chunks of 32 rows, one chunk a warp: a
-// lane loads one index of the chunk (one coalesced load) and the lanes hand
-// them out with __shfl_sync.  The chunk's P = W / 4 quarter rows (16 bytes
-// each) are visited as t = s * 32 + lane, s < P, so a warp's step covers 32
-// contiguous quarters of the output; quarter t lies in row t / P, at t % P,
-// found with one division a thread and a carry a step (no division an
-// element).  Offsets are 32-bit.  W = 16 is instantiated with P = 4 known to
-// the compiler; every other width takes the generic instantiation (P = 0:
-// read at run time).
-//   registers: each thread issues its P table loads (4 for W = 16) before
-//     its first store; stores are streaming (st.global.cs); one 256-thread
-//     block per 256 rows, one wave at the bench shape.
-//   async: persistent warps, each with a ring of STAGES chunk buffers in
-//     shared memory, filled by 16-byte cp.async.cg copies (no registers
-//     held) and written out by one TMA bulk store a chunk.
+// Design: each warp gathers 32 rows.  A lane loads one index of them (one
+// coalesced load) and the lanes hand the indices out with __shfl_sync.  The
+// rows' P = W / 4 quarters (16 bytes each) are visited as t = s * 32 + lane,
+// s < P, so each step stores 32 contiguous quarters of the output; quarter
+// t lies in row t / P at t % P, found with one division a thread and a
+// carry a step, none an element.  A thread issues all its table loads (P,
+// 4 for W = 16) before its first store; stores are streaming
+// (st.global.cs), as nothing reads the output again.  Offsets are 32-bit.
+// One 256-thread block a 256 rows: at the bench shape (B = 262,144) the grid
+// is 1024 blocks, one wave of 132 SMs x 8 blocks.  W = 16 is instantiated
+// with P known to the compiler; every other width takes the generic
+// instantiation (P read at run time).
 // Table loads: <f32> through the read-only path (each of the bench's 4096
 // rows is read 64 times); <round_bf16> with L1::no_allocate (a cold 33.5 MB
 // table, no reuse).  Rounding is round-to-nearest-even, as
@@ -47,9 +44,7 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int THREADS = 256;            // 8 warps, 8 chunks of 32 rows
-constexpr int STAGES = 4;               // async design: chunk buffers a warp
-constexpr int MAX_DEVICES = 64;
+constexpr int THREADS = 256;            // 8 warps of 32 rows
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -60,65 +55,18 @@ __device__ __forceinline__ float4 round4(float4 v) {
                      round_bf16(v.w));
 }
 
-// Variant flags of the comparison (the register design at W = 16).
-enum : int {
-  F_WB = 2,          // default (write-back) stores instead of streaming ones
-  F_64 = 4,          // 64 rows a warp instead of 32
-  F_L1 = 8,          // <round_bf16>: table loads through L1 (__ldg)
-  F_EVICT = 16,      // L2 evict-first policy on the index and <round_bf16>'s table
-  F_PREFETCH = 32,   // prefetch a small table (S <= B / 8) into L2 first
-};
-
-// The L2 policy of F_EVICT: evict-first, or evict-normal (no hint).
-__device__ __forceinline__ uint64_t l2_policy(bool first) {
-  uint64_t p;
-  if (first)
-    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
-  else
-    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ int32_t load_index(const int32_t* p, bool evict,
-                                              uint64_t pol) {
-  if (!evict) return __ldg(p);
-  int32_t v;
-  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.b32 %0, [%1], %2;"
-      : "=r"(v)
-      : "l"(p), "l"(pol));
-  return v;
-}
-
-// <f32>: through the read-only path; <round_bf16>: L1::no_allocate (or
-// through L1 with F_L1, or with the L2 policy with F_EVICT).
 template <bool ROUND>
-__device__ __forceinline__ float4 load_quarter(const float4* p, int flags,
-                                               uint64_t pol) {
-  if (!ROUND || (flags & F_L1)) return __ldg(p);
+__device__ __forceinline__ float4 load_quarter(const float4* p) {
+  if (!ROUND) return __ldg(p);
   float4 v;
-  if (flags & F_EVICT)
-    asm("ld.global.nc.L1::no_allocate.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
-        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-        : "l"(p), "l"(pol));
-  else
-    asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
-        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-        : "l"(p));
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
   return v;
 }
 
-// F_PREFETCH: the grid's threads each prefetch one 128-byte line of the
-// table into L2, alongside the index loads.
-__device__ __forceinline__ void prefetch_table(const float4* table, int S, int P) {
-  const int lines = (int)(((size_t)S * P * 16 + 127) / 128);
-  const int l = threadIdx.x * gridDim.x + blockIdx.x;
-  if (l < lines)
-    asm volatile("prefetch.global.L2 [%0];"
-                 :: "l"(reinterpret_cast<const char*>(table) + (size_t)l * 128));
-}
-
-// (row, quarter) of the lane's quarter t = s * 32 + lane in a chunk of rows
-// with P quarters each; next() steps s by one.
+// (row, quarter) of the lane's quarter t = s * 32 + lane among rows of P
+// quarters each; next() steps s by one.
 struct Walk {
   int r, q, dr, dq, P;
   __device__ __forceinline__ Walk(int lane, int P_) : P(P_) {
@@ -137,214 +85,54 @@ struct Walk {
   }
 };
 
-// ------------------------------------------------------------ registers
-
-// NI chunks of 32 rows a warp (NI indices a lane).
-template <int P_, int NI, bool ROUND>
-__global__ void __launch_bounds__(THREADS, P_ ? 8 / NI : 4)
-gather_regs_kernel(const float4* __restrict__ table,
+template <int P_, bool ROUND>               // P_ = 0: P read at run time
+__global__ void __launch_bounds__(THREADS, P_ ? 8 : 4)
+gather_rows_kernel(const float4* __restrict__ table,
                    const int32_t* __restrict__ idx, float4* __restrict__ out,
-                   int B, int P_rt, int S, int flags) {
-  constexpr int BATCH = 4 * NI;            // loads in flight before the stores
+                   int B, int P_rt) {
+  constexpr int BATCH = 4;                 // loads in flight before the stores
   const int P = P_ ? P_ : P_rt;
-  if (flags & F_PREFETCH) prefetch_table(table, S, P);
   const int lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) * 32 * NI;
+  const int row0 = (blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5)) * 32;
   if (row0 >= B) return;                   // whole warps
-  const bool evict = flags & F_EVICT;
-  const uint64_t pol = l2_policy(evict);
-  const int n = min(32 * NI, B - row0);    // rows of this warp
-  int mine[NI];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-    mine[i] = i * 32 + lane < n ? load_index(idx + row0 + i * 32 + lane, evict, pol) : 0;
+  const int n = min(32, B - row0);         // rows of this warp
+  const int mine = lane < n ? __ldg(idx + row0 + lane) : 0;
   float4* dst = out + row0 * P;
   Walk w(lane, P);
-  for (int s0 = 0; s0 < P * NI; s0 += BATCH) {
+  for (int s0 = 0; s0 < P; s0 += BATCH) {
     float4 v[BATCH];
     bool ok[BATCH];
 #pragma unroll
     for (int j = 0; j < BATCH; ++j) {
-      int row = 0;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) {
-        const int got = __shfl_sync(FULL, mine[i], w.r & 31);
-        if ((w.r >> 5) == i) row = got;
-      }
-      ok[j] = s0 + j < P * NI && w.r < n;
-      if (ok[j]) v[j] = load_quarter<ROUND>(table + (size_t)row * P + w.q, flags, pol);
+      const int row = __shfl_sync(FULL, mine, w.r & 31);
+      ok[j] = s0 + j < P && w.r < n;
+      if (ok[j]) v[j] = load_quarter<ROUND>(table + (size_t)row * P + w.q);
       w.next();
     }
 #pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      if (!ok[j]) continue;
-      const float4 x = ROUND ? round4(v[j]) : v[j];
-      if (flags & F_WB)
-        dst[(s0 + j) * 32 + lane] = x;
-      else
-        __stcs(dst + (s0 + j) * 32 + lane, x);
-    }
+    for (int j = 0; j < BATCH; ++j)
+      if (ok[j]) __stcs(dst + (s0 + j) * 32 + lane, ROUND ? round4(v[j]) : v[j]);
   }
-}
-
-// ---------------------------------------------------------------- async
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The lanes' cp.async copies of one chunk's rows into buf; one commit group
-// a call, empty for a chunk past the end.
-__device__ __forceinline__ void copy_chunk(float4* buf, const float4* table,
-                                           int mine, int n, int lane, int P) {
-  Walk w(lane, P);
-  for (int s = 0; s < P; ++s) {
-    const int row = __shfl_sync(FULL, mine, w.r & 31);
-    const uint32_t dst = smem_u32(buf + s * 32 + lane);
-    const float4* src = table + (size_t)row * P + w.q;
-    if (w.r < n)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                   :: "r"(dst), "l"(src) : "memory");
-    w.next();
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
 template <int P_, bool ROUND>
-__global__ void __launch_bounds__(THREADS)
-gather_async_kernel(const float4* __restrict__ table,
-                    const int32_t* __restrict__ idx, float4* __restrict__ out,
-                    int B, int P_rt) {
-  extern __shared__ __align__(128) float4 smem[];
-  const int P = P_ ? P_ : P_rt;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int chunks = (B + 31) / 32;
-  const int first = blockIdx.x * (THREADS / 32) + warp;   // this warp's chunks:
-  const int step = gridDim.x * (THREADS / 32);            // first + k * step
-  float4* ring = smem + warp * STAGES * 32 * P;
-  auto rows_of = [&](int k) {               // rows of local chunk k (0: none)
-    const int c = first + k * step;
-    return c < chunks ? min(32, B - c * 32) : 0;
-  };
-  if (rows_of(0) == 0) return;
-  auto index_of = [&](int k) {              // the lane's index in chunk k
-    const int n = rows_of(k);
-    return lane < n ? __ldg(idx + (first + k * step) * 32 + lane) : 0;
-  };
-
-  int ix[STAGES];                           // indices of chunks 0..STAGES-1,
-#pragma unroll                              // all loads issued together
-  for (int k = 0; k < STAGES; ++k) ix[k] = index_of(k);
-#pragma unroll
-  for (int k = 0; k < STAGES - 1; ++k)
-    copy_chunk(ring + k * 32 * P, table, ix[k], rows_of(k), lane, P);
-  int next = ix[STAGES - 1];
-
-  for (int k = 0;; ++k) {
-    const int n = rows_of(k);
-    if (n == 0) break;
-    // the buffer of chunk k + STAGES - 1 last held chunk k - 1: its bulk
-    // store must have read it
-    if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-    __syncwarp();
-    const int ahead = k + STAGES - 1;
-    copy_chunk(ring + (ahead % STAGES) * 32 * P, table, next, rows_of(ahead), lane,
-               P);
-    next = index_of(ahead + 1);
-    asm volatile("cp.async.wait_group %0;" :: "n"(STAGES - 1) : "memory");
-    float4* buf = ring + (k % STAGES) * 32 * P;
-    if (ROUND) {
-      Walk w(lane, P);
-      for (int s = 0; s < P; ++s) {
-        if (w.r < n) buf[s * 32 + lane] = round4(buf[s * 32 + lane]);
-        w.next();
-      }
-    }
-    // this lane's shared-memory writes, before the async proxy reads them
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncwarp();
-    if (lane == 0) {
-      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                   :: "l"(out + (size_t)(first + k * step) * 32 * P),
-                      "r"(smem_u32(buf)), "r"(n * P * 16)
-                   : "memory");
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    }
-  }
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// Blocks of the async design: at most two a SM, as many as fit, no more
-// than the chunks need (cached per device and instantiation).
-template <int P_, bool ROUND>
-int async_blocks(int smem, int chunks, int* blocks) {
-  static int per_device[MAX_DEVICES][2];    // {blocks a SM x SMs, smem}
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  int* cached = per_device[dev];
-  if (cached[1] != smem) {
-    auto kernel = gather_async_kernel<P_, ROUND>;
-    int sms, per_sm;
-    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    smem)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                             smem)) != cudaSuccess)
-      return (int)err;
-    if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-    cached[0] = (per_sm < 2 ? per_sm : 2) * sms;
-    cached[1] = smem;
-  }
-  const int needed = (chunks + THREADS / 32 - 1) / (THREADS / 32);
-  *blocks = cached[0] < needed ? cached[0] : needed;
-  return (int)cudaSuccess;
-}
-
-// design: bit 0 async, else the register design with the F_* flags (at
-// W = 16; the generic width takes the register design without flags)
-template <int P_, bool ROUND>
-int launch_design(const void* table, const void* idx, void* out, int B, int P,
-                  int S, int design, cudaStream_t stream) {
-  const float4* t = static_cast<const float4*>(table);
-  const int32_t* i = static_cast<const int32_t*>(idx);
-  float4* o = static_cast<float4*>(out);
-  if (!(design & 1)) {
-    int flags = P_ ? design : 0;
-    if ((long long)S * 8 > B) flags &= ~F_PREFETCH;   // not a small table
-    const int ni = flags & F_64 ? 2 : 1, rows = THREADS * ni;
-    const int blocks = (B + rows - 1) / rows;
-    if (ni == 2)
-      gather_regs_kernel<P_, 2, ROUND><<<blocks, THREADS, 0, stream>>>(t, i, o, B, P, S,
-                                                                       flags);
-    else
-      gather_regs_kernel<P_, 1, ROUND><<<blocks, THREADS, 0, stream>>>(t, i, o, B, P, S,
-                                                                       flags);
-    return (int)cudaGetLastError();
-  }
-  const int smem = (THREADS / 32) * STAGES * 32 * P * 16;
-  int blocks;
-  const int err = async_blocks<P_, ROUND>(smem, (B + 31) / 32, &blocks);
-  if (err != (int)cudaSuccess) return err;
-  gather_async_kernel<P_, ROUND><<<blocks, THREADS, smem, stream>>>(t, i, o, B, P);
+int launch_p(const void* table, const void* idx, void* out, int B, int P,
+             cudaStream_t stream) {
+  gather_rows_kernel<P_, ROUND><<<(B + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+      static_cast<const float4*>(table), static_cast<const int32_t*>(idx),
+      static_cast<float4*>(out), B, P);
   return (int)cudaGetLastError();
 }
 
 template <bool ROUND>
 int launch(const void* table, const void* idx, void* out, int64_t B, int64_t W,
-           int64_t S, int64_t design, void* stream) {
-  if (W <= 0 || W % 4 || B < 0 || B * W >= (1LL << 31) || S < 0 || S >= (1LL << 31) ||
-      design < 0 || design >= 64)
+           void* stream) {
+  if (W <= 0 || W % 4 || B < 0 || B * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (W == 16)
-    return launch_design<4, ROUND>(table, idx, out, (int)B, 4, (int)S, (int)design, s);
-  return launch_design<0, ROUND>(table, idx, out, (int)B, (int)(W / 4), (int)S, (int)design,
-                                 s);
+  if (W == 16) return launch_p<4, ROUND>(table, idx, out, (int)B, 4, s);
+  return launch_p<0, ROUND>(table, idx, out, (int)B, (int)(W / 4), s);
 }
 
 // An empty kernel on the same C interface: the fixed cost of one launch
@@ -354,19 +142,19 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 extern "C" int gather_rows_empty_launch(const void*, const void*, void*, int64_t,
-                                        int64_t, int64_t, int64_t, void* stream) {
+                                        int64_t, void* stream) {
   empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 
 extern "C" int gather_rows_f32_launch(const void* table, const void* idx,
-                                      void* out, int64_t B, int64_t W, int64_t S,
-                                      int64_t design, void* stream) {
-  return launch<false>(table, idx, out, B, W, S, design, stream);
+                                      void* out, int64_t B, int64_t W,
+                                      void* stream) {
+  return launch<false>(table, idx, out, B, W, stream);
 }
 
 extern "C" int gather_rows_round_bf16_launch(const void* table, const void* idx,
-                                             void* out, int64_t B, int64_t W, int64_t S,
-                                             int64_t design, void* stream) {
-  return launch<true>(table, idx, out, B, W, S, design, stream);
+                                             void* out, int64_t B, int64_t W,
+                                             void* stream) {
+  return launch<true>(table, idx, out, B, W, stream);
 }

@@ -6,9 +6,10 @@ Counterpart of the Pallas TPU kernels of the gather micro-benchmark,
 ``g_pallas_taa`` (a gather from a VMEM-resident table; both compute
 ``table[idx]``), and ``:249`` ``g_pallas_onehot`` (a one-hot x table product
 in bf16 with f32 sums, which is ``f32(bf16(table[idx]))``: ``round_bf16``).
-The kernel is ``csrc/gather_rows.cu``, one thread per float4 of an output row
-with the table read through the read-only path (the TPU's VMEM table, 256 KiB
-in f32, does not fit a Hopper block's shared memory; it sits in L2).
+The kernel is ``csrc/gather_rows.cu``: 32 rows a warp, the indices loaded
+once and handed out with ``__shfl_sync``, every table load of a thread
+issued before its first streaming store (the TPU's VMEM table, 256 KiB in
+f32, does not fit a Hopper block's shared memory; it sits in L2).
 
 What bounds it on an H100: bytes, the index and output plus the table rows
 the indices touch.
@@ -28,11 +29,7 @@ from envidr_tpu_torch.ops._cuda import CudaLibrary, launch, on_card
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gather_rows.cu"
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-# the designs compared (csrc/gather_rows.cu: bit 0 async, else the register
-# design's variant flags F_*)
-DESIGNS = {"registers": 0, "async": 1, "registers_wb": 2, "registers_64": 4,
-           "registers_l1": 8, "registers_evict": 16, "registers_prefetch": 32}
+         ctypes.c_int64, ctypes.c_void_p]
 KERNEL = CudaLibrary(SOURCE, "gather_rows_f32_launch", _ARGS)
 KERNEL_BF16 = CudaLibrary(SOURCE, "gather_rows_round_bf16_launch", _ARGS)
 # an empty kernel on the same interface: the floor of a timed launch
@@ -58,7 +55,7 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor,
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
-                round_bf16: bool = False, design: str = "registers") -> torch.Tensor:
+                round_bf16: bool = False) -> torch.Tensor:
     """``[S, W]`` f32 table x ``[B]`` indices in ``[0, S)`` -> ``[B, W]`` f32;
     with ``round_bf16`` each value is rounded to bf16 (nearest even) and
     widened back.  The kernel does not check the indices."""
@@ -68,9 +65,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     B, W = idx.shape[0], table.shape[1]
     if W % 4 or W == 0:
         raise ValueError(f"row width {W} is not a positive multiple of 4 (16-byte rows)")
-    if B * W >= 2**31 or table.shape[0] >= 2**31:
-        raise ValueError(f"{B} x {W} outputs from {table.shape[0]} rows: the kernel's "
-                         "offsets are 32-bit")
+    if B * W >= 2**31:
+        raise ValueError(f"{B} x {W} outputs: the kernel's offsets are 32-bit")
     table = table.contiguous()
     if table.data_ptr() % 16:
         raise ValueError("the table is not 16-byte aligned (16-byte loads)")
@@ -79,6 +75,5 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     if B == 0:
         return out
     launch(KERNEL_BF16 if round_bf16 else KERNEL, "gather_rows", table.device,
-           table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, W, table.shape[0],
-           DESIGNS[design])
+           table.data_ptr(), idx.data_ptr(), out.data_ptr(), B, W)
     return out

@@ -12,7 +12,7 @@ fewer rows than the grid has threads, a table of odd size or of a few rows,
 and 8, int64 indices and a bf16 accumulator.  The padding rows of ``scatter_add_rows``
 must stay exactly zero.  ``gather_rows`` (both instantiations) at no rows,
 one row, row counts that are not a multiple of a warp's 32 or a block's 256,
-row widths 4, 8, 12 and 32 (the generic instantiation), int64 indices, every
+row widths 4, 8, 12, 32 and 160 (the generic instantiation), int64 indices, every
 index equal, indices reaching S - 1 and a 2^19-row table; a gather is exact.
 On the CPU both sides are the plain version; the cases are still built and
 run.
@@ -81,6 +81,7 @@ GATHER_CASES = {
     "gather, W = 8, round_bf16": dict(W=8, round_bf16=True),
     "gather, W = 12": dict(W=12, B=8195),
     "gather, W = 32": dict(W=32, B=8200),
+    "gather, W = 160 (more than 32 quarters a row)": dict(W=160, B=3000),
     "gather, int64 indices": dict(idx_dtype=np.int64),
     "gather, every index equal": dict(same=True),
     "gather, indices reaching S - 1": dict(S=100_003, low=100_003 - 100),
