@@ -30,6 +30,21 @@ seconds:
            "error"; launch counts are zeroed just before
   render   one 400x400 eval render of a val view, PSNR against the analytic
            ground truth; launch counts are read just after
+  cp_parity  a small CP + NeuS + coarse-march model, one train-step loss and
+           its gradients on the card against the same step on the CPU, per
+           tensor: the CP encoder in f32 under PARITY_RTOL, and in bf16 (the
+           production dtype) under CP_BF16_RTOL
+  train_cp configs/synth_spheres_cp.ini, the repo's main path, at full width
+           (CP encoder 16 levels x rank 32, NeuS alpha, coarse march, 3x64
+           SDF and colour MLPs, env net 64, 4096 rays): 20 train steps, each
+           step that neither starts an epoch nor refreshes the grid under sync
+           debug mode "error"; every march must take the coarse path; launch
+           counts are zeroed just before
+  render_cp the repo's trained CP checkpoint (assets/neus_cp_long_best.ckpt)
+           loaded by the port, val view 0 rendered at 400x400, PSNR against the
+           analytic ground truth (white background) above 22 dB; launch counts
+           are read just after (no kernel lies on the CP path)
+  bench_torch  bench_torch.py's function on the default config: its JSON line
   bench    the three micro-benchmarks of envidr_tpu_torch.tools at their full
            shapes with few iterations (every table row, hash_encode of both
            indexings included); launch counts are zeroed just before and read
@@ -42,6 +57,7 @@ is non-zero; without a CUDA card it exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -76,6 +92,15 @@ PARITY_RTOL = 5e-3                 # of each tensor's max |value|: the card and
                                    # is a margin of ~4x over it.  The f32 step is
                                    # itself 9.4e-3 from f64 on the table gradient
                                    # (the cpu_f32_vs_cpu_f64 reading)
+CP_BF16_RTOL = 2.0**-6             # of each tensor's max, the CP step with its
+                                   # encoder in bf16: the same roundings in
+                                   # another summation order; the same bound
+                                   # holds the port to JAX's op-by-op bf16 step
+                                   # (tests/test_torch_neus.py, readings there
+                                   # 2.5e-3 to 7.3e-3)
+CP_INI = os.path.join(ROOT, "configs", "synth_spheres_cp.ini")
+CP_CKPT = os.path.join(ROOT, "assets", "neus_cp_long_best.ckpt")
+CP_PSNR_MIN_DB = 22.0              # tests/test_cp_quality_ckpt.py's bar
 
 
 def phase(name: str, *words, **numbers):
@@ -405,6 +430,165 @@ def check_parity():
             "f32_vs_f64_max": max(f64.values()), "f32_vs_f64_worst": max(f64, key=f64.get)}
 
 
+def _cp_parity_step(device: str, cp_dtype: str):
+    """One step of a small CP + NeuS + coarse-march model (synth_spheres_cp.ini
+    cut to 4 levels, rank 8, width-16 MLPs), its CP encoder in ``cp_dtype``:
+    loss, image and gradients as f64 CPU tensors."""
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.models.network import NeRFNetwork
+    from envidr_tpu_torch.train.schedules import resolve
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(CP_INI, num_levels=4, desired_resolution=64, cp_rank=8,
+                       hidden_dim=16, hidden_dim_color=16, hidden_dim_env=16)
+    cfg = network_config(opt)
+    gen = torch.Generator().manual_seed(3)
+    rays_o = torch.randn(256, 3, generator=gen) * 0.1 + torch.tensor([0.0, 0.0, 2.5])
+    target = torch.rand(256, 3, generator=gen) * 0.6 - 0.3
+    rays_d = torch.nn.functional.normalize(target - rays_o, dim=-1)
+    gt = torch.rand(256, 3, generator=gen)
+    alpha = (torch.rand(256, generator=gen) > 0.5).float()
+    net = NeRFNetwork(cfg, generator=torch.Generator().manual_seed(0))
+    net.cp_spec = dataclasses.replace(net.cp_spec, compute_dtype=cp_dtype)
+    tr = Trainer(opt, cfg, device=device, net=net)
+    bits = torch.rand(tr.grid.bitfield.shape, generator=gen) < 0.6
+    tr.grid = tr.grid._replace(bitfield=bits.to(device))
+    args = [t.to(device) for t in (rays_o, rays_d, gt, torch.ones(256, 3), alpha)]
+    loss, out, _ = tr.forward_loss(*args, K=32, sched=resolve(opt, 1, 250))
+    loss.backward()
+    return {"loss": loss.detach().double().cpu().reshape(1),
+            "image": out["image"].detach().double().cpu(),
+            **{n: p.grad.detach().double().cpu() for n, p in tr.net.named_parameters()}}
+
+
+def check_cp_parity():
+    """The CP step on the card against the CPU, per tensor, max |a - b| /
+    max |b|: the encoder in f32 under PARITY_RTOL, in bf16 under
+    CP_BF16_RTOL.  Every march must take the coarse path."""
+    from envidr_tpu_torch.ops.marching import MARCH_PATHS
+
+    MARCH_PATHS.clear()
+    result = {}
+    for cp_dtype, tol in (("float32", PARITY_RTOL), ("bfloat16", CP_BF16_RTOL)):
+        cpu = _cp_parity_step("cpu", cp_dtype)
+        card = _cp_parity_step("cuda", cp_dtype)
+        rel = {n: float((card[n] - cpu[n]).abs().max()) / max(float(cpu[n].abs().max()), 1e-30)
+               for n in cpu}
+        phase("cp_parity", f"card_vs_cpu_{cp_dtype}", json.dumps(rel))
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= tol:
+            raise AssertionError(f"CP step ({cp_dtype} encoder): card and CPU disagree on "
+                                 f"{worst}: {rel[worst]} > {tol}")
+        result[f"{cp_dtype}_max_rel_err"] = rel[worst]
+        result[f"{cp_dtype}_worst"] = worst
+        result[f"{cp_dtype}_tolerance"] = tol
+    if MARCH_PATHS["dense"] or not MARCH_PATHS["coarse"]:
+        raise AssertionError(f"cp_parity marches: {dict(MARCH_PATHS)}; all must be coarse")
+    return result
+
+
+def train_cp(libs):
+    """synth_spheres_cp.ini at full width on the in-memory scene: 20 steps,
+    the sync-free ones under sync debug mode "error".  Zeroes the launch
+    counts first; returns the trainer and the scene's options."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.ops.marching import MARCH_PATHS
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(CP_INI)
+    cfg = network_config(opt)
+    spec = cfg.cp_spec
+    widths = dict(levels=spec.num_levels, rank=spec.rank, hidden=cfg.hidden_dim,
+                  hidden_color=cfg.hidden_dim_color, hidden_env=cfg.hidden_dim_env,
+                  ide_degree=cfg.sh_degree, rays=opt.num_rays, max_steps=opt.max_steps,
+                  early_stop=opt.early_stop_steps, compute_dtype=spec.compute_dtype)
+    want = dict(levels=16, rank=32, hidden=64, hidden_color=64, hidden_env=64, ide_degree=4,
+                rays=4096, max_steps=512, early_stop=64, compute_dtype="bfloat16")
+    if widths != want or not (opt.coarse_march and cfg.use_neus_sdf):
+        raise AssertionError(f"synth_spheres_cp.ini is not at its published width: {widths}")
+    data = SynthSpheres("train", scale=opt.scale)
+    trainer = Trainer(opt, cfg)
+    for lib in libs.values():                        # the CP path starts here
+        lib.launches = 0
+    MARCH_PATHS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.update_extra_state()
+    losses, step_ms, sync_free = [], [], 0
+    for i in range(TRAIN_STEPS):
+        guard = not trainer.step_may_sync()
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if guard else "default")
+        try:
+            m = trainer.train_step(data)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        sync_free += guard
+        losses.append(float(m["loss"]))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"train_cp step {i + 1}: loss {losses[-1]}")
+    ms_per_step = float(np.mean(step_ms[3:]))
+    notfinite = int(trainer.notfinite)
+    if notfinite or sync_free < TRAIN_STEPS - 3:
+        raise AssertionError(f"train_cp: notfinite {notfinite}, {sync_free} steps checked "
+                             "for host syncs")
+    if MARCH_PATHS["dense"] or MARCH_PATHS["coarse"] != TRAIN_STEPS:
+        raise AssertionError(f"train_cp marches: {dict(MARCH_PATHS)}; every step must "
+                             "take the coarse path")
+    phase("train_cp", config="synth_spheres_cp.ini", widths=repr(widths), steps=TRAIN_STEPS,
+          loss_1=losses[0], loss_20=losses[-1], notfinite=notfinite,
+          mean_samples_per_ray=float(m["mean_count"]), K=m["K"], sync_free_steps=sync_free,
+          ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
+          first_step_ms=step_ms[0], coarse_marches=MARCH_PATHS["coarse"],
+          dense_marches=MARCH_PATHS["dense"],
+          grid_occupied=float(trainer.grid.bitfield.float().mean()),
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def render_cp(libs):
+    """The trained CP checkpoint on the card: val view 0 at 400x400 (the second
+    of two renders timed), PSNR against the analytic ground truth."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.ops.marching import MARCH_PATHS
+    from envidr_tpu_torch.train.metrics import psnr
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(CP_INI)
+    trainer = Trainer(opt, network_config(opt))
+    trainer.load_checkpoint(CP_CKPT)
+    val = SynthSpheres("val", scale=opt.scale)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = trainer.render_image(val.poses[0], val.intrinsics, val.H, val.W, use_ema=False)
+        render_s = time.perf_counter() - t
+    launches = {k: lib.launches for k, lib in libs.items()}    # the CP path ends here
+    img = res["image"]
+    gt = val.images[0].astype(np.float32) / 255.0
+    gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+    p = psnr(img, gt)
+    if img.shape != (val.H, val.W, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"render_cp: shape {img.shape}, finite {np.isfinite(img).all()}")
+    if not p > CP_PSNR_MIN_DB:
+        raise AssertionError(f"render_cp: checkpoint PSNR {p} dB <= {CP_PSNR_MIN_DB}")
+    if MARCH_PATHS["dense"]:
+        raise AssertionError(f"render_cp marches: {dict(MARCH_PATHS)}; all must be coarse")
+    phase("render_cp", checkpoint=os.path.relpath(CP_CKPT, ROOT), epoch=trainer.epoch,
+          size=f"{val.H}x{val.W}", psnr_db=p, min_psnr_db=CP_PSNR_MIN_DB,
+          eval_K=trainer.eval_samples_budget(), seconds=render_s,
+          eval_rays_per_s=val.H * val.W / render_s,
+          cp_path_launches=repr(" ".join(f"{k}:{v}" for k, v in launches.items())))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -503,6 +687,12 @@ def main() -> int:
         raise AssertionError(f"render: psnr {p}, image std {img.std()}")
     phase("render", size=f"{val.H}x{val.W}", psnr_db=p, image_std=float(img.std()),
           seconds=render_s, rays_per_s=val.H * val.W / render_s)
+
+    phase("cp_parity", **check_cp_parity())
+    train_cp(libs)
+    render_cp(libs)
+    import bench_torch
+    phase("bench_torch", json.dumps(bench_torch.run()))
 
     for lib in libs.values():                        # the benchmarks' path starts here
         lib.launches = 0

@@ -410,6 +410,20 @@ def load_options(config_path: str = "", **overrides) -> Options:
     return finalize(Options(**values))
 
 
+# the hash encoder's path through the port's kernel: the hand-written VJP,
+# whose table gradients csrc/scatter_rows.cu scatters
+HASH_KERNEL_PATH = dict(hash_scatter_impl="mixed", hash_custom_grad="on")
+
+
+def card_options(config_path: str, **overrides) -> Options:
+    """:func:`load_options` as the card runs a config: a hash-grid config
+    takes :data:`HASH_KERNEL_PATH` (the CP configs reach no kernel)."""
+    opt = load_options(config_path, **overrides)
+    if opt.encoding_pos in ("rolled_tiled", "hashgrid", "hashgrid_diff"):
+        opt = load_options(config_path, **{**HASH_KERNEL_PATH, **overrides})
+    return opt
+
+
 def network_config(opt: Options) -> NetworkConfig:
     """Build the structural NetworkConfig from Options (main_nerf.py:28-78)."""
     in_r = in_m = in_c = 0

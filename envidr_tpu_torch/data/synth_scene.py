@@ -87,17 +87,21 @@ class SynthSpheres:
     c2w float32 [B, 4, 4], ``intrinsics`` (fx, fy, cx, cy)."""
 
     def __init__(self, split: str = "train", *, size: int = CANONICAL_SIZE,
-                 n: Optional[int] = None, scale: float = 0.33, offset=(0, 0, 0)):
+                 n: Optional[int] = None, scale: float = 0.33, offset=(0, 0, 0),
+                 downscale: int = 1):
+        """``downscale`` keeps every ``downscale``-th pixel of each row and
+        column, as ``NeRFDataset(..., downscale=...)`` subsamples the files."""
         n_default, seed = SPLITS[split]
         n = n_default if n is None else n
         focal = size * 1.25
         c2ws = split_poses(n, seed)
-        self.images = np.stack([render(c, size, size, focal) for c in c2ws])
+        self.images = np.stack([render(c, size, size, focal)[::downscale, ::downscale]
+                                for c in c2ws])
         # the json round trip of write_split: float64 lists -> float32 arrays
         self.poses = np.stack([nerf_matrix_to_ngp(np.array(c.tolist(), np.float32),
                                                   scale=scale, offset=offset)
                                for c in c2ws])
-        self.H = self.W = size
+        self.H, self.W = self.images.shape[1:3]
         self.C = 4
         # focal from camera_angle_x as NeRFDataset derives it
         camera_angle_x = 2 * np.arctan(size / (2 * focal))

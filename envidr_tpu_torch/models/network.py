@@ -11,11 +11,11 @@ carry the JAX functions' names
 
 Ported so far: the hash encoder (``encoding_pos`` ``rolled_tiled``, and
 ``hashgrid`` / ``hashgrid_diff``, which select ``hash`` indexing with linear /
-smoothstep interpolation), the Laplace density, the frequency/SH/IDE
-direction encoders, the diffuse, specular and environment MLPs.  The CP
-encoder, NeuS alpha, numerical normals, the background net, sphere mode and
-the interreflection branch raise ``NotImplementedError`` until their slices
-land.
+smoothstep interpolation), the CP encoder (``cp``), the Laplace density and
+the NeuS alpha, the frequency/SH/IDE direction encoders, the diffuse,
+specular and environment MLPs.  Numerical normals, the background net, sphere
+mode and the interreflection branch raise ``NotImplementedError`` until their
+slices land.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from torch import nn
 from envidr_tpu_torch.geometry.rays import reflect_dir
 from envidr_tpu_torch.models.mlp import apply_mlp, feat_act, init_linear, init_mlp
 from envidr_tpu_torch.ops import density as density_ops
+from envidr_tpu_torch.ops.cp import CPSpec, cp_encode_from_world, init_cp_params
 from envidr_tpu_torch.ops.freq import freq_encode, freq_output_dim
 from envidr_tpu_torch.ops.hashgrid import (
     EncoderGradGate, HashGridSpec, hash_encode_from_world, init_hash_embeddings,
@@ -161,6 +162,13 @@ class NetworkConfig:
             custom_grad=self.hash_custom_grad)
 
     @property
+    def cp_spec(self) -> CPSpec:
+        return CPSpec(
+            input_dim=3, num_levels=self.num_levels, level_dim=self.level_dim,
+            rank=self.cp_rank, base_resolution=self.base_resolution,
+            desired_resolution=int(self.bound * self.desired_resolution))
+
+    @property
     def pos_enc_dim(self) -> int:
         if self.encoding_pos in ("hashgrid", "hashgrid_diff", "rolled_tiled",
                                  "cp"):
@@ -235,9 +243,8 @@ def _unported(cfg: NetworkConfig):
     """Names of the options of ``cfg`` this slice does not port yet."""
     checks = {
         f"encoding_pos={cfg.encoding_pos!r}": cfg.encoding_pos not in (
-            "rolled_tiled", "hashgrid", "hashgrid_diff"),
+            "rolled_tiled", "hashgrid", "hashgrid_diff", "cp"),
         "use_sdf=False": not cfg.use_sdf,
-        "use_neus_sdf": cfg.use_neus_sdf,
         "numerical_normals": cfg.numerical_normals,
         "bg_radius > 0": cfg.bg_radius > 0,
         "material conditioning (sphere mode)": cfg.material_dims > 0,
@@ -270,12 +277,28 @@ def _safe_normalize(v: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
 
 class _Params(nn.Module):
     """A named holder of loose parameters (``encoder.embeddings``,
-    ``sdf_density.beta``) so that module names match the JAX pytree keys."""
+    ``sdf_density.beta`` or ``sdf_density.variance``) so that module names
+    match the JAX pytree keys."""
 
     def __init__(self, **tensors):
         super().__init__()
         for name, t in tensors.items():
             self.register_parameter(name, nn.Parameter(t))
+
+
+class CPEncoder(nn.Module):
+    """The CP encoder's tables as parameters named like the JAX pytree
+    ``{"axes": [[Tx, Ty, Tz] per level], "proj": [P per level]}``:
+    ``axes.<level>.<axis>`` and ``proj.<level>``."""
+
+    def __init__(self, spec: CPSpec, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        p = init_cp_params(spec, generator=generator)
+        self.axes = nn.ModuleList([nn.ParameterList(level) for level in p["axes"]])
+        self.proj = nn.ParameterList(p["proj"])
+
+    def tables(self):
+        return {"axes": [list(level) for level in self.axes], "proj": list(self.proj)}
 
 
 class NeRFNetwork(nn.Module):
@@ -286,10 +309,17 @@ class NeRFNetwork(nn.Module):
             raise NotImplementedError(
                 f"not ported to envidr_tpu_torch yet: {', '.join(missing)}")
         self.cfg = cfg
+        # the CP encoder's spec; a caller may swap in another compute dtype
+        self.cp_spec = cfg.cp_spec
         init = cfg.net_init or "torch_default"
-        self.encoder = _Params(
-            embeddings=init_hash_embeddings(cfg.hash_spec, generator=generator))
-        self.sdf_density = _Params(beta=torch.tensor(float(cfg.init_beta)))
+        if cfg.encoding_pos == "cp":
+            self.encoder = CPEncoder(self.cp_spec, generator)
+        else:
+            self.encoder = _Params(
+                embeddings=init_hash_embeddings(cfg.hash_spec, generator=generator))
+        self.sdf_density = _Params(**(
+            density_ops.init_neus_params(cfg.init_variance) if cfg.use_neus_sdf
+            else density_ops.init_laplace_params(cfg.init_beta)))
         layers = []
         for l in range(cfg.num_layers):
             in_dim = cfg.sdf_in_dim if l == 0 else cfg.hidden_dim
@@ -319,8 +349,11 @@ class NeRFNetwork(nn.Module):
 
     def encode_position(self, xyz, level_mask=None, gate: Optional[EncoderGradGate] = None):
         cfg = self.cfg
-        x = hash_encode_from_world(xyz, self.encoder.embeddings, cfg.hash_spec,
-                                   bound=cfg.bound, gate=gate)
+        if cfg.encoding_pos == "cp":
+            x = cp_encode_from_world(xyz, self.encoder.tables(), self.cp_spec, bound=cfg.bound)
+        else:
+            x = hash_encode_from_world(xyz, self.encoder.embeddings, cfg.hash_spec,
+                                       bound=cfg.bound, gate=gate)
         if level_mask is not None:
             # coarse-to-fine level gating (network.py:390-393)
             x = x * torch.repeat_interleave(level_mask, cfg.level_dim)
@@ -346,10 +379,19 @@ class NeRFNetwork(nn.Module):
         out["blend_weight"] = None
         return out
 
-    def sdf_to_sigma(self, sdf, *, beta_cap=None, beta_min=None):
-        """Laplace density; ``beta_cap`` is an optional upper bound on beta and
-        ``beta_min`` an override of ``cfg.beta_min``."""
+    def sdf_to_sigma(self, sdf, *, dirs=None, dists=None, normals=None,
+                     cos_anneal_ratio=1.0, beta_cap=None, beta_min=None):
+        """NeuS alpha (``use_neus_sdf``; ``dists`` defaults to one step of a
+        1024-step ladder, 2*sqrt(3)/1024) or the Laplace density, whose beta
+        ``beta_cap`` bounds from above and ``beta_min`` from below in place
+        of ``cfg.beta_min``."""
         cfg = self.cfg
+        if cfg.use_neus_sdf:
+            if dists is None:
+                dists = 2.0 * density_ops.SQRT3 / 1024.0
+            return density_ops.neus_alpha(
+                sdf, self.sdf_density.variance, dirs=dirs, dists=dists, gradients=normals,
+                cos_anneal_ratio=cos_anneal_ratio, n_detach=cfg.neus_n_detach)
         beta = density_ops.laplace_beta(
             self.sdf_density.beta, cfg.beta_min if beta_min is None else beta_min,
             cfg.beta_max)

@@ -3,6 +3,8 @@
 Counterpart of ``envidr_tpu/render/scene.py:render_scene`` for the options
 this slice reaches (no background net, no secondary-ray gradients, no
 per-sample loss auxiliaries, no stratified jitter, no geometry-only mode).
+Under NeuS (``use_neus_sdf``) the network returns alphas, composited as they
+are, and the normals are always computed: the alpha reads them.
 """
 
 from __future__ import annotations
@@ -31,16 +33,18 @@ class SceneRenderOptions:
     perturb: bool = False
     training: bool = False
     need_normals: bool = True
+    coarse_march: bool = False      # two-level march (ops/marching.py)
 
 
 def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Tensor,
                  rays_o: torch.Tensor, rays_d: torch.Tensor, bg_color,
                  aabb: torch.Tensor, *, noise: Optional[torch.Tensor] = None,
                  level_mask: Optional[torch.Tensor] = None,
-                 normal_anneal_ratio: float = 1.0, beta_cap=None,
-                 beta_min=None) -> Dict[str, Any]:
+                 normal_anneal_ratio: float = 1.0, cos_anneal_ratio: float = 1.0,
+                 beta_cap=None, beta_min=None) -> Dict[str, Any]:
     """Render N rays.  ``noise`` [N] in [0, 1) perturbs the march start (used
-    only when ``opts.perturb``); ``bg_color`` is a scalar, [3] or [N, 3]."""
+    only when ``opts.perturb``); ``bg_color`` is a scalar, [3] or [N, 3];
+    ``cos_anneal_ratio`` is NeuS's (1 at eval)."""
     cfg = net.cfg
     N, K = rays_o.shape[0], opts.num_samples
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)
@@ -51,13 +55,14 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
                    grid_size=opts.grid_size, dt_gamma=opts.dt_gamma,
                    max_steps=opts.max_steps, num_samples=K,
                    early_stop_steps=opts.early_stop_steps,
-                   noise=noise if opts.perturb else None)
+                   noise=noise if opts.perturb else None,
+                   coarse_march=opts.coarse_march)
     xyzs, dts = m.xyzs, m.dts
     dirs = rays_d[:, None, :].expand_as(xyzs)
 
     # the color MLPs need normals whenever a normal-derived feature is on
     need_normals = opts.need_normals or cfg.normal_with_mlp or cfg.use_reflected_dir \
-        or cfg.use_n_dot_viewdir or cfg.diffuse_with_env
+        or cfg.use_n_dot_viewdir or cfg.diffuse_with_env or cfg.use_neus_sdf
     geo, normals, sdf_gradients = net.geometry_with_normals(
         xyzs, level_mask, need_normals=need_normals,
         normal_anneal_ratio=normal_anneal_ratio, create_graph=opts.training)
@@ -66,10 +71,13 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
     if roughness is None:
         roughness = torch.full_like(sdfs[..., None], cfg.default_roughness)
 
-    sigmas = net.sdf_to_sigma(sdfs, beta_cap=beta_cap, beta_min=beta_min)
+    sigmas = net.sdf_to_sigma(
+        sdfs, dirs=dirs, dists=dts, normals=normals,
+        cos_anneal_ratio=cos_anneal_ratio, beta_cap=beta_cap, beta_min=beta_min)
     zero = torch.zeros((), device=sigmas.device)
     sigmas = torch.where(m.mask, opts.density_scale * sigmas, zero)
-    weights = weights_from_alphas(alphas_from_sigmas(sigmas, dts), T_thresh=opts.T_thresh)
+    alphas = sigmas if cfg.use_neus_sdf else alphas_from_sigmas(sigmas, dts)
+    weights = weights_from_alphas(alphas, T_thresh=opts.T_thresh)
     weights = torch.where(m.mask, weights, zero)
     weights_sum = weights.sum(dim=-1)
     depth = (weights * m.z_vals).sum(dim=-1)

@@ -64,9 +64,13 @@ def _color_err(pred, gt, kind: str):
 
 def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFlags,
                    weights: Dict[str, float], *,
+                   neus_inv_s: Optional[torch.Tensor] = None,
                    alpha_mask: Optional[torch.Tensor] = None,
                    diffuse_gt: Optional[torch.Tensor] = None):
-    """Returns (total_loss, per-term dict of detached scalars)."""
+    """Returns (total_loss, per-term dict of detached scalars).
+
+    ``neus_inv_s`` is the NeuS sharpness; only the Cauchy and entropy terms
+    read it, and they raise until ported."""
     unported = flags.unported()
     if unported:
         raise NotImplementedError(f"loss terms not ported yet: {unported}")

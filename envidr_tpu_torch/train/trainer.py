@@ -21,13 +21,18 @@ A step does not block the host: the finite check, the counters and the
 mean-count EMA stay on the device, and the host reads the EMA once, when an
 epoch chooses its K.  Only the grid refresh may synchronise.
 
+:meth:`Trainer.load_checkpoint` reads the JAX package's checkpoints (a
+pickle of numpy arrays; nothing else is unpickled).
+
 Error-map, patch and crop sampling, image batches, the indirect pass,
-sphere mode and checkpoints are not ported yet and raise.
+sphere mode and saving checkpoints are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib
+import pickle
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,8 +41,9 @@ import torch
 from envidr_tpu_torch import resolve_device
 from envidr_tpu_torch.config import Options
 from envidr_tpu_torch.geometry.rays import full_image_rays, sampled_rays, srgb_to_linear
+from envidr_tpu_torch.io.jax_params import load_jax_params
 from envidr_tpu_torch.models.network import NeRFNetwork, NetworkConfig
-from envidr_tpu_torch.ops.grid import GridSpec, init_grid, update_grid
+from envidr_tpu_torch.ops.grid import GridSpec, OccupancyGrid, init_grid, update_grid
 from envidr_tpu_torch.render.scene import SceneRenderOptions, render_scene
 from envidr_tpu_torch.train.losses import compute_losses
 from envidr_tpu_torch.train.schedules import StepSchedule, level_mask, resolve
@@ -58,7 +64,6 @@ def _unported(opt: Options):
         "env_sph_mode / render_env_on_sphere": opt.env_sph_mode or opt.render_env_on_sphere,
         "error_bound_sample": opt.error_bound_sample or opt.error_bound_start_iter > 0,
         "stratified_sampling": opt.stratified_sampling,
-        "coarse_march": opt.coarse_march,
         "frozen_mlps / train_renv / train_env_only":
             bool(opt.frozen_mlps) or opt.train_renv or opt.train_env_only,
         "color_mlp_path": bool(opt.color_mlp_path),
@@ -184,7 +189,7 @@ class Trainer:
               if self._sched is not None else None)
         net = self.net
 
-        def density_fn(x):
+        def density_fn(x):    # NeuS: the alpha of one default step, no normals
             return net.sdf_to_sigma(net.forward_geometry(x, lm)["sdf"])
 
         fraction = 1 if (full or self.grid.iter_density < 16) else 4
@@ -255,14 +260,21 @@ class Trainer:
             max_steps=sched.max_steps, num_samples=K,
             early_stop_steps=sched.early_stop_steps, dt_gamma=opt.dt_gamma,
             T_thresh=opt.T_thresh, min_near=opt.min_near, perturb=noise is not None,
-            training=True, grid_size=self.grid_spec.grid_size)
+            training=True, grid_size=self.grid_spec.grid_size,
+            coarse_march=opt.coarse_march)
+        neus = self.cfg.use_neus_sdf
         out = render_scene(
             self.net, ropts, self.grid.bitfield, rays_o, rays_d, bg, self.aabb,
             noise=noise,
             level_mask=level_mask(sched.enabled_levels, self.cfg.num_levels, self.device),
             normal_anneal_ratio=sched.normal_anneal_ratio,
-            beta_min=w["_beta_min"] if opt.beta_min_sched else None)
-        loss, terms = compute_losses(out, gt_rgb, sched.flags, w, alpha_mask=alpha_mask)
+            # the epoch's anneal, read afresh each step (nothing compiles it in)
+            cos_anneal_ratio=sched.cos_anneal_ratio,
+            beta_min=w["_beta_min"] if opt.beta_min_sched and not neus else None)
+        neus_inv_s = (torch.clamp(torch.exp(self.net.sdf_density.variance * 10.0), 1e-6, 1e6)
+                      if neus else None)
+        loss, terms = compute_losses(out, gt_rgb, sched.flags, w, alpha_mask=alpha_mask,
+                                     neus_inv_s=neus_inv_s)
         return loss, out, terms
 
     def _apply_update(self):
@@ -274,13 +286,15 @@ class Trainer:
             torch._foreach_lerp_(list(self.ema_net.parameters()),
                                  list(self.net.parameters()), 1.0 - EMA_DECAY)
 
-    def train_step(self, dataset) -> Dict[str, object]:
+    def train_step(self, dataset, *, refresh_grid: bool = True) -> Dict[str, object]:
         """One step on the next image of the epoch's shuffled order: the loss,
         its terms, the step's mean sample count and ``notfinite`` as detached
-        device tensors (nothing is read back), and the epoch's ``K``."""
+        device tensors (nothing is read back), and the epoch's ``K``.
+        ``refresh_grid=False`` skips the grid refresh that falls on this step
+        (a benchmark times the steps alone, as ``bench.py`` does)."""
         idx = self._next_index(dataset)
         sched, opt = self._sched, self.opt
-        if self._refreshes_grid():
+        if refresh_grid and self._refreshes_grid():
             self.update_extra_state()
         if self._images is None or self._images[0] is not dataset:
             self._images = (dataset, dataset.device_images(self.device),
@@ -328,7 +342,7 @@ class Trainer:
             max_steps=opt.max_steps, num_samples=self.eval_samples_budget(),
             early_stop_steps=opt.early_stop_steps, dt_gamma=opt.dt_gamma,
             T_thresh=opt.T_thresh, min_near=opt.min_near,
-            grid_size=self.grid_spec.grid_size)
+            grid_size=self.grid_spec.grid_size, coarse_march=opt.coarse_march)
         pose = torch.as_tensor(np.asarray(pose, np.float32), device=self.device)
         rays_o, rays_d = full_image_rays(pose[None], intrinsics, H, W)
         rays_o, rays_d = rays_o[0], rays_d[0]
@@ -345,3 +359,51 @@ class Trainer:
                         parts.setdefault(k, []).append(res[k])
         return {k: torch.cat(v).reshape((H, W) + v[0].shape[1:]).cpu().numpy()
                 for k, v in parts.items()}
+
+    # ------------------------------------------------------ checkpoints
+
+    def load_checkpoint(self, path: str):
+        """Read a checkpoint of the JAX package (``Trainer.save_checkpoint``
+        there): ``epoch``, ``global_step``, ``mean_count``, ``params``,
+        ``ema`` and ``grid``.  The optimizer starts afresh."""
+        with open(path, "rb") as f:
+            payload = _ArrayUnpickler(f).load()
+        self.epoch = int(payload["epoch"])
+        self.global_step = int(payload["global_step"])
+        self.mean_count = torch.tensor(float(payload.get("mean_count", -1.0)),
+                                       dtype=torch.float64, device=self.device)
+        load_jax_params(self.net, payload["params"])
+        load_jax_params(self.ema_net, payload["ema"])
+        density, bitfield, mean_density, iter_density = payload["grid"]
+        self.grid = OccupancyGrid(
+            density=torch.from_numpy(np.asarray(density, np.float32)).to(self.device),
+            bitfield=torch.from_numpy(np.asarray(bitfield, bool)).to(self.device),
+            mean_density=torch.tensor(float(mean_density), device=self.device),
+            iter_density=int(iter_density))
+        self._sched, self._order = None, []
+        return True
+
+
+# the only globals a checkpoint may name: numpy's array reconstruction
+# (numpy 2 pickles them under numpy._core, numpy 1 under numpy.core)
+_CKPT_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
+                 ("numpy.core.multiarray", "_reconstruct"),
+                 ("numpy.core.multiarray", "scalar")}
+
+
+class _ArrayUnpickler(pickle.Unpickler):
+    """Unpickles numpy arrays in plain containers and refuses every other
+    global, so a checkpoint cannot run code when it is read."""
+
+    def find_class(self, module, name):
+        canon = module.replace("numpy._core", "numpy.core", 1)
+        if (canon, name) not in _CKPT_GLOBALS:
+            raise pickle.UnpicklingError(
+                f"checkpoint names {module}.{name}, not a part of a numpy array")
+        if canon == "numpy":
+            return getattr(np, name)
+        try:
+            mod = importlib.import_module("numpy._core.multiarray")
+        except ImportError:
+            mod = importlib.import_module("numpy.core.multiarray")
+        return getattr(mod, name)

@@ -76,9 +76,14 @@ def export_jax_layout(net, grads: bool = False) -> Dict[str, Any]:
             t = torch.zeros_like(t) if t.grad is None else t.grad
         return t.detach().cpu().numpy()
 
+    if hasattr(net.encoder, "axes"):             # the CP encoder
+        encoder = {"axes": [[val(t) for t in lvl] for lvl in net.encoder.axes],
+                   "proj": [val(t) for t in net.encoder.proj]}
+    else:
+        encoder = {"embeddings": val(net.encoder.embeddings)}
     out: Dict[str, Any] = {
-        "encoder": {"embeddings": val(net.encoder.embeddings)},
-        "sdf_density": {"beta": val(net.sdf_density.beta)},
+        "encoder": encoder,
+        "sdf_density": {k: val(t) for k, t in net.sdf_density.named_parameters()},
     }
     for name in ("sdf_net", "diffuse_net", "color_net", "env_net"):
         if hasattr(net, name):

@@ -14,7 +14,8 @@ import torch
 from test_torch_helpers import ROOT, SYNTH_INI
 
 PKG = Path(ROOT) / "envidr_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [Path(ROOT) / "chip_smoke.py"]
+SCRIPTS = ("chip_smoke.py", "bench_torch.py")
+SOURCES = sorted(PKG.rglob("*.py")) + [Path(ROOT) / s for s in SCRIPTS]
 FORBIDDEN = ("jax", "jaxlib", "optax", "envidr_tpu", "tools", "imageio", "PIL")
 IMPORT_RE = re.compile(
     r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")(?![\w])", re.MULTILINE)
@@ -37,7 +38,7 @@ def test_source_imports_nothing_forbidden(path):
 def test_importing_every_module_loads_no_forbidden_module():
     code = (
         "import importlib, pkgutil, sys\n"
-        "import envidr_tpu_torch, chip_smoke\n"
+        "import envidr_tpu_torch, chip_smoke, bench_torch\n"
         "for m in pkgutil.walk_packages(envidr_tpu_torch.__path__, 'envidr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
@@ -70,6 +71,13 @@ def test_trainer_without_card_raises(monkeypatch):
 
 def test_chip_smoke_without_card_exits_nonzero_and_prints_nothing():
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, env=NO_CARD,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+def test_bench_torch_without_card_exits_nonzero_and_prints_nothing():
+    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, env=NO_CARD,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert out.stdout == ""

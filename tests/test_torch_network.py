@@ -155,5 +155,5 @@ def test_forward_color_matches():
 def test_unported_options_raise():
     (_, _, _), (_, tcfg, _) = shared_model()
     import dataclasses
-    with pytest.raises(NotImplementedError, match="use_neus_sdf"):
-        NeRFNetwork(dataclasses.replace(tcfg, use_neus_sdf=True))
+    with pytest.raises(NotImplementedError, match="numerical_normals"):
+        NeRFNetwork(dataclasses.replace(tcfg, numerical_normals=True))

@@ -1,0 +1,209 @@
+"""NeuS alpha (envidr_tpu_torch/ops/density.py), the parameter bridge's CP
+and variance leaves, and one train step of a small CP + NeuS + coarse-march
+model (configs/synth_spheres_cp.ini cut to test size) against the JAX
+package on the same parameters and rays.
+
+The step runs twice.  With the CP encoder in f32 (both packages'
+``NetworkConfig.cp_spec`` patched here to ``compute_dtype='float32'``) it is
+held against the jitted JAX step to f32 tolerances.  With the production bf16
+encoder (trap C3) it is held against the JAX step run op by op
+(``jax.disable_jit``): under ``jit`` XLA drops bf16 roundings (its default
+``xla_allow_excess_precision``), and this step's gradients are so sensitive
+to those roundings that the jitted and the op-by-op JAX steps differ by
+2-46% of each leaf's max (encoder 0.458, sdf_net 0.172, env_net 0.094,
+color_net 0.063, diffuse_net 0.021; tests/cp_readings.py).  The op-by-op JAX
+step rounds where the port rounds."""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import envidr_tpu.models.network as jnet
+import envidr_tpu_torch.models.network as tnet
+from envidr_tpu.config import load_options as jax_load, network_config as jax_netcfg
+from envidr_tpu.models.network import init_network_params
+from envidr_tpu.ops import density as jdens
+from envidr_tpu.render.scene import SceneRenderOptions, render_scene
+from envidr_tpu.train.losses import compute_losses
+from envidr_tpu.train.schedules import resolve as jax_resolve
+from envidr_tpu_torch.config import load_options as torch_load, network_config as torch_netcfg
+from envidr_tpu_torch.io.jax_params import load_jax_params
+from envidr_tpu_torch.models.network import NeRFNetwork
+from envidr_tpu_torch.ops import density as tdens
+from envidr_tpu_torch.train.schedules import resolve
+from envidr_tpu_torch.train.trainer import Trainer
+from test_torch_helpers import ROOT, camera_rays, export_jax_layout, rel_err
+
+CP_INI = os.path.join(ROOT, "configs", "synth_spheres_cp.ini")
+# synth_spheres_cp.ini cut to test size: 4 levels up to resolution 64, rank 8,
+# width-16 MLPs; the grid stays 128, so the coarse march runs (S = 8)
+CP_SMALL = dict(num_levels=4, desired_resolution=64, cp_rank=8, hidden_dim=16,
+                hidden_dim_color=16, hidden_dim_env=16, num_rays=64)
+ALPHA_ATOL = 1e-6    # alphas in [0, 1], the same f32 expression
+TERM_RTOL = 1e-4     # f32 loss terms over 64 rays x 32 samples
+GRAD_RTOL = 1.3e-3   # f32 double backward, rel. to max (ROADMAP C-5)
+# bf16 step against the op-by-op JAX step: JAX rounds the second-order
+# table-gradient partial sums to bf16 in more places than the port
+# (tests/test_torch_cp.py), and the step amplifies them.  Readings
+# (tests/cp_readings.py), max over each leaf's tensors: encoder 7.3e-3,
+# sdf_net 3.1e-3, color_net 2.7e-3, env_net 2.5e-3; so 2^-6 leaves 2x room.
+BF16_STEP_RTOL = 2.0**-6
+K = 32
+GLOBAL_STEP = 250    # cos_anneal_ratio 0.5 at cos_anneal_steps 500
+
+
+@pytest.mark.parametrize("ratio", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("with_normals", [True, False])
+def test_neus_alpha_matches(ratio, with_normals):
+    rng = np.random.default_rng(int(ratio * 10) + with_normals)
+    sdf = rng.normal(0, 0.05, (200, 16)).astype(np.float32)
+    dirs = rng.normal(size=(200, 16, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    grads = rng.normal(size=(200, 16, 3)).astype(np.float32)
+    dists = rng.uniform(0.001, 0.02, (200, 16)).astype(np.float32)
+    var = np.float32(0.45)
+    kw = dict(cos_anneal_ratio=ratio)
+    if with_normals:
+        ref = jdens.neus_alpha(jnp.asarray(sdf), jnp.asarray(var), jnp.asarray(dirs),
+                               jnp.asarray(dists), jnp.asarray(grads), **kw)
+        ours = tdens.neus_alpha(torch.tensor(sdf), torch.tensor(var), torch.tensor(dirs),
+                                torch.tensor(dists), torch.tensor(grads), **kw)
+    else:
+        ref = jdens.neus_alpha(jnp.asarray(sdf), jnp.asarray(var), dists=2.0 * 3**0.5 / 1024,
+                               **kw)
+        ours = tdens.neus_alpha(torch.tensor(sdf), torch.tensor(var), dists=2.0 * 3**0.5 / 1024,
+                                **kw)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=ALPHA_ATOL)
+    assert 0.0 < float(ours.mean()) < 1.0
+
+
+def _cp_model(seed=0):
+    jopt, topt = jax_load(CP_INI, **CP_SMALL), torch_load(CP_INI, **CP_SMALL)
+    jcfg, tcfg = jax_netcfg(jopt), torch_netcfg(topt)
+    params = jax.tree.map(np.asarray, init_network_params(jax.random.PRNGKey(seed), jcfg))
+    return (jopt, jcfg, params), (topt, tcfg, load_jax_params(NeRFNetwork(tcfg), params))
+
+
+def test_bridge_carries_cp_tables_and_variance():
+    (_, _, params), (_, tcfg, net) = _cp_model(seed=3)
+    names = {n for n, _ in net.named_parameters()}
+    assert {"encoder.axes.0.0", "encoder.axes.3.2", "encoder.proj.3",
+            "sdf_density.variance"} <= names and "sdf_density.beta" not in names
+    back = export_jax_layout(net)
+    for path, a in jax.tree_util.tree_leaves_with_path(params):
+        b = dict(jax.tree_util.tree_leaves_with_path(back))[path]
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert float(net.sdf_density.variance.detach()) == float(params["sdf_density"]["variance"])
+    bad = jax.tree.map(lambda a: a, params)
+    bad["encoder"]["axes"][0] = bad["encoder"]["axes"][0][:2]     # a missing axis table
+    with pytest.raises(ValueError, match="encoder"):
+        load_jax_params(NeRFNetwork(tcfg), bad)
+    bad = jax.tree.map(lambda a: a, params)
+    bad["sdf_density"] = {"beta": np.float32(0.1)}
+    with pytest.raises(ValueError, match="sdf_density"):
+        load_jax_params(NeRFNetwork(tcfg), bad)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def cp_step(request):
+    return cp_step_case(request.param)
+
+
+def _f32_cp_spec(cfg):
+    return dataclasses.replace(_BF16_SPECS[type(cfg)].fget(cfg), compute_dtype="float32")
+
+
+_BF16_SPECS = {m.NetworkConfig: m.NetworkConfig.cp_spec for m in (jnet, tnet)}
+
+
+def cp_step_case(dtype: str):
+    """The step with the CP encoder in ``dtype``: the JAX step jitted in f32,
+    op by op in bf16."""
+    with pytest.MonkeyPatch.context() as mp:
+        if dtype == "float32":
+            for m in (jnet, tnet):
+                mp.setattr(m.NetworkConfig, "cp_spec", property(_f32_cp_spec))
+            return _cp_step(jax.jit)
+        with jax.disable_jit():
+            return _cp_step(lambda f: f)
+
+
+def _cp_step(jit):
+    (jopt, jcfg, params), (topt, tcfg, net) = _cp_model(seed=5)
+    o, d = camera_rays(64, seed=4)
+    rng = np.random.default_rng(5)
+    pix = rng.uniform(0, 1, (64, 4)).astype(np.float32)
+    pix[:, 3] = (rng.uniform(size=64) > 0.4).astype(np.float32)
+    bg = np.ones((64, 3), np.float32)
+    gt = (pix[:, :3] * pix[:, 3:] + bg * (1.0 - pix[:, 3:])).astype(np.float32)
+    alpha = pix[:, 3].copy()
+    bits = np.random.default_rng(6).uniform(size=(1, 128 ** 3)) < 0.6
+    jsched = jax_resolve(jopt, 1, GLOBAL_STEP)
+    ropts = SceneRenderOptions(max_steps=jsched.max_steps, num_samples=K,
+                               early_stop_steps=jsched.early_stop_steps,
+                               dt_gamma=jopt.dt_gamma, T_thresh=jopt.T_thresh,
+                               min_near=jopt.min_near, training=True,
+                               cos_anneal_ratio=jsched.cos_anneal_ratio, coarse_march=True)
+    aabb = jnp.asarray([-1.0] * 3 + [1.0] * 3)
+    weights = {k: jnp.asarray(v) for k, v in jsched.weights.items()}
+
+    def loss_fn(p):
+        out = render_scene(p, jcfg, ropts, jnp.asarray(bits), jnp.asarray(o), jnp.asarray(d),
+                           jnp.asarray(bg), aabb, cos_anneal_ratio=weights["_cos_anneal"])
+        inv_s = jnp.clip(jnp.exp(p["sdf_density"]["variance"] * 10.0), 1e-6, 1e6)
+        return compute_losses(out, jnp.asarray(gt), jsched.flags, weights,
+                              neus_inv_s=inv_s, alpha_mask=jnp.asarray(alpha))
+
+    jp = jax.tree.map(jnp.asarray, params)
+    (jl, jterms), jgrads = jit(jax.value_and_grad(loss_fn, has_aux=True))(jp)
+    tr = Trainer(topt, tcfg, device="cpu", net=net)
+    tr.grid = tr.grid._replace(bitfield=torch.from_numpy(bits))
+    sched = resolve(topt, 1, GLOBAL_STEP)
+    tl, out, tterms = tr.forward_loss(*(torch.from_numpy(a) for a in (o, d, gt, bg, alpha)),
+                                      K=K, sched=sched)
+    tl.backward()
+    return dict(jl=float(jl), jterms=jterms, jgrads=jax.tree.map(np.asarray, jgrads), tr=tr,
+                tl=float(tl.detach()), tterms=tterms, out=out, ratio=sched.cos_anneal_ratio,
+                dtype=tcfg.cp_spec.compute_dtype)
+
+
+def test_cp_step_loss_terms_match(cp_step):
+    c = cp_step
+    assert c["ratio"] == 0.5
+    assert set(c["tterms"]) == set(c["jterms"]) == {"color", "mask", "eikonal"}
+    for k, v in c["jterms"].items():
+        assert float(c["tterms"][k]) == pytest.approx(float(v), rel=TERM_RTOL), k
+    assert c["tl"] == pytest.approx(c["jl"], rel=TERM_RTOL)
+    assert int(c["out"]["counts"].sum()) > 0
+
+
+@pytest.mark.parametrize("leaf", ["encoder", "sdf_density", "sdf_net", "diffuse_net",
+                                  "color_net", "env_net"])
+def test_cp_step_gradients_match(cp_step, leaf):
+    ours = dict(jax.tree_util.tree_leaves_with_path(
+        export_jax_layout(cp_step["tr"].net, grads=True)[leaf]))
+    tol = GRAD_RTOL if cp_step["dtype"] == "float32" else BF16_STEP_RTOL
+    errs = {}
+    for path, a in jax.tree_util.tree_leaves_with_path(cp_step["jgrads"][leaf]):
+        assert np.abs(a).max() > 0, path
+        errs[jax.tree_util.keystr(path)] = rel_err(a, ours[path])
+    assert max(errs.values()) <= tol, errs
+
+
+@pytest.mark.parametrize("config", ["synth_spheres_cp.ini", "synth_spheres_neus.ini",
+                                    "r4_laplace_betamin.ini"])
+def test_config_builds_a_trainer_and_takes_a_step(config):
+    """The configs this slice unlocks (CP, NeuS and the coarse march) train
+    in the port: a trainer on the CPU, small widths, one step on the scene."""
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    opt = torch_load(os.path.join(ROOT, "configs", config), **CP_SMALL)
+    tr = Trainer(opt, torch_netcfg(opt), device="cpu")
+    m = tr.train_step(SynthSpheres("train", size=40, n=2, scale=opt.scale))
+    assert np.isfinite(float(m["loss"])) and float(m["mean_count"]) > 0
+    assert int(tr.notfinite) == 0 and int(tr.applied_steps) == 1
