@@ -34,6 +34,10 @@ seconds:
            its gradients on the card against the same step on the CPU, per
            tensor: the CP encoder in f32 under PARITY_RTOL, and in bf16 (the
            production dtype) under CP_BF16_RTOL
+  ours_parity  the same for configs/scenes/synth_spheres_ours.ini cut as
+           small (its rendering MLPs keep the widths of the pretrain
+           checkpoint they load; dense march): the card against the CPU,
+           which tests/test_torch_ours.py holds against the JAX package
   train_cp configs/synth_spheres_cp.ini, the repo's main path, at full width
            (CP encoder 16 levels x rank 32, NeuS alpha, coarse march, 3x64
            SDF and colour MLPs, env net 64, 4096 rays): 20 train steps, each
@@ -44,6 +48,29 @@ seconds:
            loaded by the port, val view 0 rendered at 400x400, PSNR against the
            analytic ground truth (white background) above 22 dB; launch counts
            are read just after (no kernel lies on the CP path)
+  train_ours configs/scenes/synth_spheres_ours.ini, ENVIDR's per-scene recipe,
+           at its published width (CP 16 levels x rank 32, NeuS, dense march,
+           3x64 SDF and colour MLPs, env net 160, 4096 rays) with the rendering
+           MLPs of assets/env_sphere_pretrain_best.ckpt frozen: 20 train steps,
+           the sync-free ones under sync debug mode "error"; the frozen MLPs
+           must stay bit-equal to the checkpoint's in the net and the EMA net,
+           and every trainable group must move
+  relight  val view 0 at 400x400 from that trainer before and after
+           swap_env_net(assets/env_ckpts/env_net_5.pth): both times and the
+           mean absolute difference, which must not be 0
+  render_laplace  assets/r4_laplace_cue_best.ckpt under r4_laplace_cue.ini,
+           val view 0 at 400x400, PSNR above LAPLACE_PSNR_MIN_DB
+  cue      the geometric cue of r4_laplace_cue.ini at its published 500 steps
+           x 131,072 points, full width: first and last loss, seconds; then
+           10 train steps of that recipe (the beta cap projected at the epoch's
+           start and handed to the render and the loss as a device tensor),
+           the sync-free ones under sync debug mode "error"
+  train_aux  r4_laplace_ref.ini at epoch 121 (back-face, Cauchy and eikonal
+           terms on) with stratified_sampling: 10 steps, every loss term at
+           the last one
+  train_density  configs/synth_spheres_density.ini (use_sdf=False) through
+           card_options, so on the scatter_add_rows kernel: 10 steps; launch
+           counts are zeroed just before and read just after
   bench_torch  bench_torch.py's function on the default config: its JSON line
   bench    the three micro-benchmarks of envidr_tpu_torch.tools at their full
            shapes with few iterations (every table row, hash_encode of both
@@ -101,6 +128,20 @@ CP_BF16_RTOL = 2.0**-6             # of each tensor's max, the CP step with its
 CP_INI = os.path.join(ROOT, "configs", "synth_spheres_cp.ini")
 CP_CKPT = os.path.join(ROOT, "assets", "neus_cp_long_best.ckpt")
 CP_PSNR_MIN_DB = 22.0              # tests/test_cp_quality_ckpt.py's bar
+OURS_INI = os.path.join(ROOT, "configs", "scenes", "synth_spheres_ours.ini")
+PRETRAIN_CKPT = os.path.join(ROOT, "assets", "env_sphere_pretrain_best.ckpt")
+ENV_NET = os.path.join(ROOT, "assets", "env_ckpts", "env_net_5.pth")
+LAPLACE_INI = os.path.join(ROOT, "configs", "r4_laplace_cue.ini")
+LAPLACE_CKPT = os.path.join(ROOT, "assets", "r4_laplace_cue_best.ckpt")
+LAPLACE_PSNR_MIN_DB = 23.68        # the JAX package's render of this view at
+                                   # downscale 4 on the CPU reads 24.6847 dB
+                                   # (tests/ours_readings.py), less 1 dB; the
+                                   # card renders the full 400x400 view
+AUX_INI = os.path.join(ROOT, "configs", "r4_laplace_ref.ini")
+AUX_EPOCH = 121                    # back-face and Cauchy on from 40, eikonal from 120
+DENSITY_INI = os.path.join(ROOT, "configs", "synth_spheres_density.ini")
+SHORT_STEPS = 10                   # train_aux and train_density
+CUE_STEPS, CUE_POINTS = 500, 131_072   # Trainer.train_geometric_cue's published defaults
 
 
 def phase(name: str, *words, **numbers):
@@ -430,18 +471,25 @@ def check_parity():
             "f32_vs_f64_max": max(f64.values()), "f32_vs_f64_worst": max(f64, key=f64.get)}
 
 
-def _cp_parity_step(device: str, cp_dtype: str):
-    """One step of a small CP + NeuS + coarse-march model (synth_spheres_cp.ini
-    cut to 4 levels, rank 8, width-16 MLPs), its CP encoder in ``cp_dtype``:
-    loss, image and gradients as f64 CPU tensors."""
+# small cuts of the CP configs for the card-against-CPU steps: 4 levels, rank
+# 8, width-16 MLPs; the ours config keeps the pretrain's rendering-MLP widths
+CP_PARITY_CUT = dict(num_levels=4, desired_resolution=64, cp_rank=8, hidden_dim=16)
+CP_PARITY = {"synth_spheres_cp.ini": (CP_INI, dict(hidden_dim_color=16, hidden_dim_env=16)),
+             "scenes/synth_spheres_ours.ini": (OURS_INI, dict(color_mlp_path=PRETRAIN_CKPT))}
+
+
+def _cp_parity_step(device: str, cp_dtype: str, config: str = "synth_spheres_cp.ini"):
+    """One step of a small CP + NeuS model (``config`` cut by CP_PARITY_CUT),
+    its CP encoder in ``cp_dtype``: loss, image and gradients as f64 CPU
+    tensors."""
     import torch
     from envidr_tpu_torch.config import load_options, network_config
     from envidr_tpu_torch.models.network import NeRFNetwork
     from envidr_tpu_torch.train.schedules import resolve
     from envidr_tpu_torch.train.trainer import Trainer
 
-    opt = load_options(CP_INI, num_levels=4, desired_resolution=64, cp_rank=8,
-                       hidden_dim=16, hidden_dim_color=16, hidden_dim_env=16)
+    path, extra = CP_PARITY[config]
+    opt = load_options(path, **CP_PARITY_CUT, **extra)
     cfg = network_config(opt)
     gen = torch.Generator().manual_seed(3)
     rays_o = torch.randn(256, 3, generator=gen) * 0.1 + torch.tensor([0.0, 0.0, 2.5])
@@ -462,30 +510,66 @@ def _cp_parity_step(device: str, cp_dtype: str):
             **{n: p.grad.detach().double().cpu() for n, p in tr.net.named_parameters()}}
 
 
-def check_cp_parity():
-    """The CP step on the card against the CPU, per tensor, max |a - b| /
+def check_cp_parity(config: str = "synth_spheres_cp.ini", label: str = "cp_parity"):
+    """A CP step on the card against the CPU, per tensor, max |a - b| /
     max |b|: the encoder in f32 under PARITY_RTOL, in bf16 under
-    CP_BF16_RTOL.  Every march must take the coarse path."""
+    CP_BF16_RTOL.  Every march must take the config's path (coarse for
+    synth_spheres_cp.ini, dense for the ours config)."""
     from envidr_tpu_torch.ops.marching import MARCH_PATHS
 
     MARCH_PATHS.clear()
     result = {}
     for cp_dtype, tol in (("float32", PARITY_RTOL), ("bfloat16", CP_BF16_RTOL)):
-        cpu = _cp_parity_step("cpu", cp_dtype)
-        card = _cp_parity_step("cuda", cp_dtype)
+        cpu = _cp_parity_step("cpu", cp_dtype, config)
+        card = _cp_parity_step("cuda", cp_dtype, config)
         rel = {n: float((card[n] - cpu[n]).abs().max()) / max(float(cpu[n].abs().max()), 1e-30)
                for n in cpu}
-        phase("cp_parity", f"card_vs_cpu_{cp_dtype}", json.dumps(rel))
+        phase(label, f"card_vs_cpu_{cp_dtype}", json.dumps(rel))
         worst = max(rel, key=rel.get)
         if not rel[worst] <= tol:
-            raise AssertionError(f"CP step ({cp_dtype} encoder): card and CPU disagree on "
-                                 f"{worst}: {rel[worst]} > {tol}")
+            raise AssertionError(f"{config} step ({cp_dtype} encoder): card and CPU disagree "
+                                 f"on {worst}: {rel[worst]} > {tol}")
         result[f"{cp_dtype}_max_rel_err"] = rel[worst]
         result[f"{cp_dtype}_worst"] = worst
         result[f"{cp_dtype}_tolerance"] = tol
-    if MARCH_PATHS["dense"] or not MARCH_PATHS["coarse"]:
-        raise AssertionError(f"cp_parity marches: {dict(MARCH_PATHS)}; all must be coarse")
+    path = "coarse" if config == "synth_spheres_cp.ini" else "dense"
+    if not MARCH_PATHS[path] or sum(MARCH_PATHS.values()) != MARCH_PATHS[path]:
+        raise AssertionError(f"{label} marches: {dict(MARCH_PATHS)}; all must be {path}")
     return result
+
+
+def timed_steps(trainer, data, steps: int, label: str):
+    """``steps`` train steps, each that neither starts an epoch nor refreshes
+    the grid under sync debug mode "error" (any synchronising call in it
+    raises): (losses, ms of each step, steps checked, each step's metrics)."""
+    import numpy as np
+    import torch
+
+    losses, step_ms, sync_free, metrics = [], [], 0, []
+    for i in range(steps):
+        guard = not trainer.step_may_sync()
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if guard else "default")
+        try:
+            metrics.append(trainer.train_step(data))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        sync_free += guard
+        losses.append(float(metrics[-1]["loss"]))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"{label} step {i + 1}: loss {losses[-1]}")
+    notfinite = int(trainer.notfinite)
+    if notfinite or sync_free < steps - 3:
+        raise AssertionError(f"{label}: notfinite {notfinite}, {sync_free} of {steps} steps "
+                             "checked for host syncs")
+    return losses, step_ms, sync_free, metrics
+
+
+def assert_widths(config: str, widths: dict, want: dict):
+    if widths != want:
+        raise AssertionError(f"{config} is not at its published width: {widths} != {want}")
 
 
 def train_cp(libs):
@@ -508,8 +592,9 @@ def train_cp(libs):
                   early_stop=opt.early_stop_steps, compute_dtype=spec.compute_dtype)
     want = dict(levels=16, rank=32, hidden=64, hidden_color=64, hidden_env=64, ide_degree=4,
                 rays=4096, max_steps=512, early_stop=64, compute_dtype="bfloat16")
-    if widths != want or not (opt.coarse_march and cfg.use_neus_sdf):
-        raise AssertionError(f"synth_spheres_cp.ini is not at its published width: {widths}")
+    assert_widths("synth_spheres_cp.ini", {**widths, "neus": cfg.use_neus_sdf,
+                                           "coarse_march": opt.coarse_march},
+                  {**want, "neus": True, "coarse_march": True})
     data = SynthSpheres("train", scale=opt.scale)
     trainer = Trainer(opt, cfg)
     for lib in libs.values():                        # the CP path starts here
@@ -518,26 +603,10 @@ def train_cp(libs):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.update_extra_state()
-    losses, step_ms, sync_free = [], [], 0
-    for i in range(TRAIN_STEPS):
-        guard = not trainer.step_may_sync()
-        t = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error" if guard else "default")
-        try:
-            m = trainer.train_step(data)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        sync_free += guard
-        losses.append(float(m["loss"]))
-        if not np.isfinite(losses[-1]):
-            raise AssertionError(f"train_cp step {i + 1}: loss {losses[-1]}")
+    losses, step_ms, sync_free, ms = timed_steps(trainer, data, TRAIN_STEPS, "train_cp")
+    m = ms[-1]
     ms_per_step = float(np.mean(step_ms[3:]))
     notfinite = int(trainer.notfinite)
-    if notfinite or sync_free < TRAIN_STEPS - 3:
-        raise AssertionError(f"train_cp: notfinite {notfinite}, {sync_free} steps checked "
-                             "for host syncs")
     if MARCH_PATHS["dense"] or MARCH_PATHS["coarse"] != TRAIN_STEPS:
         raise AssertionError(f"train_cp marches: {dict(MARCH_PATHS)}; every step must "
                              "take the coarse path")
@@ -587,6 +656,233 @@ def render_cp(libs):
           eval_K=trainer.eval_samples_budget(), seconds=render_s,
           eval_rays_per_s=val.H * val.W / render_s,
           cp_path_launches=repr(" ".join(f"{k}:{v}" for k, v in launches.items())))
+
+
+def _launches(libs) -> str:
+    return repr(" ".join(f"{k}:{lib.launches}" for k, lib in libs.items()))
+
+
+def _val_view_psnr(val, img) -> float:
+    import numpy as np
+    from envidr_tpu_torch.train.metrics import psnr
+    gt = val.images[0].astype(np.float32) / 255.0
+    gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])         # white background
+    return psnr(img, gt)
+
+
+def train_ours(libs):
+    """ENVIDR's per-scene recipe at its published width, the rendering MLPs
+    of the pretrain frozen: 20 steps.  Returns the trainer for relight."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.ops.marching import MARCH_PATHS
+    from envidr_tpu_torch.train.trainer import Trainer, frozen_modules, read_checkpoint
+
+    opt = load_options(OURS_INI, color_mlp_path=PRETRAIN_CKPT)
+    cfg = network_config(opt)
+    spec = cfg.cp_spec
+    frozen = frozen_modules(opt)
+    assert_widths("synth_spheres_ours.ini", dict(
+        levels=spec.num_levels, rank=spec.rank, compute_dtype=spec.compute_dtype,
+        hidden=cfg.hidden_dim, hidden_color=cfg.hidden_dim_color, hidden_env=cfg.hidden_dim_env,
+        ide_degree=cfg.sh_degree, geo_feat=cfg.geo_feat_dim, env_feat=cfg.env_feat_dim,
+        rays=opt.num_rays, max_steps=opt.max_steps, early_stop=opt.early_stop_steps,
+        neus=cfg.use_neus_sdf, coarse_march=opt.coarse_march, frozen=sorted(frozen)), dict(
+        levels=16, rank=32, compute_dtype="bfloat16", hidden=64, hidden_color=64,
+        hidden_env=160, ide_degree=4, geo_feat=12, env_feat=12, rays=4096, max_steps=512,
+        early_stop=64, neus=True, coarse_march=False, frozen=["color_net", "diffuse_net"]))
+    payload = read_checkpoint(PRETRAIN_CKPT)
+    ckpt = payload["ema"] if "ema" in payload else payload["params"]      # what was loaded
+    data = SynthSpheres("train", scale=opt.scale)
+    trainer = Trainer(opt, cfg)
+    start = {name: [p.detach().clone() for p in module.parameters()]
+             for name, module in trainer.net.named_children() if name not in frozen}
+    for lib in libs.values():                        # the ours path starts here
+        lib.launches = 0
+    MARCH_PATHS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.update_extra_state()
+    losses, step_ms, sync_free, ms = timed_steps(trainer, data, TRAIN_STEPS, "train_ours")
+    m = ms[-1]
+    launches = _launches(libs)                       # and ends here
+    ms_per_step = float(np.mean(step_ms[3:]))
+    for net, which in ((trainer.net, "net"), (trainer.ema_net, "EMA net")):
+        for name in sorted(frozen):
+            for i, layer in enumerate(getattr(net, name)):
+                want = ckpt[name][i]
+                if not (torch.equal(layer.weight.cpu(), torch.from_numpy(want["w"].T))
+                        and torch.equal(layer.bias.cpu(), torch.from_numpy(want["b"]))):
+                    raise AssertionError(f"train_ours: frozen {name}[{i}] of the {which} moved")
+    still = [name for name, ps in start.items()
+             if all(torch.equal(a, b) for a, b in zip(ps, getattr(trainer.net, name).parameters()))]
+    if still:
+        raise AssertionError(f"train_ours: trainable groups {still} did not move")
+    if MARCH_PATHS["coarse"] or MARCH_PATHS["dense"] != TRAIN_STEPS:
+        raise AssertionError(f"train_ours marches: {dict(MARCH_PATHS)}; every step must take "
+                             "the dense path (the config sets no coarse_march)")
+    phase("train_ours", config="scenes/synth_spheres_ours.ini",
+          color_mlp_path=os.path.relpath(PRETRAIN_CKPT, ROOT), frozen=repr(sorted(frozen)),
+          steps=TRAIN_STEPS, loss_1=losses[0], loss_20=losses[-1],
+          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
+          first_step_ms=step_ms[0], mean_samples_per_ray=float(m["mean_count"]), K=m["K"],
+          coarse_marches=MARCH_PATHS["coarse"], dense_marches=MARCH_PATHS["dense"],
+          frozen_bit_equal=True, trainable_moved=repr(sorted(start)),
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    return trainer, opt
+
+
+def relight(trainer, opt):
+    """Val view 0 at 400x400 before and after swapping in env_net_5.pth."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+
+    val = SynthSpheres("val", scale=opt.scale)
+    images, secs = [], []
+    for swap in (False, True):
+        if swap:
+            trainer.swap_env_net(ENV_NET)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = trainer.render_image(val.poses[0], val.intrinsics, val.H, val.W)["image"]
+        secs.append(time.perf_counter() - t)
+        if img.shape != (val.H, val.W, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"relight: shape {img.shape}, finite {np.isfinite(img).all()}")
+        images.append(img)
+    diff = float(np.abs(images[1] - images[0]).mean())
+    if not diff > 0.0:
+        raise AssertionError("relight: the swapped env net changed no pixel")
+    phase("relight", env_net=os.path.relpath(ENV_NET, ROOT), size=f"{val.H}x{val.W}",
+          seconds_before=secs[0], seconds_after=secs[1], mean_abs_diff=diff,
+          psnr_before_db=_val_view_psnr(val, images[0]),
+          psnr_after_db=_val_view_psnr(val, images[1]))
+
+
+def render_laplace():
+    """The trained Laplace checkpoint: val view 0 at 400x400, PSNR."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(LAPLACE_INI)
+    trainer = Trainer(opt, network_config(opt))
+    trainer.load_checkpoint(LAPLACE_CKPT)
+    val = SynthSpheres("val", scale=opt.scale)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    img = trainer.render_image(val.poses[0], val.intrinsics, val.H, val.W, use_ema=False)["image"]
+    render_s = time.perf_counter() - t
+    if img.shape != (val.H, val.W, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"render_laplace: shape {img.shape}, finite {np.isfinite(img).all()}")
+    p = _val_view_psnr(val, img)
+    if not p > LAPLACE_PSNR_MIN_DB:
+        raise AssertionError(f"render_laplace: PSNR {p} dB <= {LAPLACE_PSNR_MIN_DB}")
+    phase("render_laplace", checkpoint=os.path.relpath(LAPLACE_CKPT, ROOT), epoch=trainer.epoch,
+          size=f"{val.H}x{val.W}", psnr_db=p, min_psnr_db=LAPLACE_PSNR_MIN_DB,
+          eval_K=trainer.eval_samples_budget(), seconds=render_s)
+
+
+def cue():
+    """The geometric cue of r4_laplace_cue.ini at full width, then 10 train
+    steps under its beta cap."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(LAPLACE_INI)
+    cfg = network_config(opt)
+    assert_widths("r4_laplace_cue.ini", dict(
+        levels=cfg.cp_spec.num_levels, rank=cfg.cp_spec.rank, hidden=cfg.hidden_dim,
+        geometric_cue=opt.geometric_cue), dict(levels=16, rank=32, hidden=64, geometric_cue=True))
+    trainer = Trainer(opt, cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = trainer.train_geometric_cue(CUE_STEPS, CUE_POINTS)
+    secs = time.perf_counter() - t
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"cue: losses {losses[0]} -> {losses[-1]}")
+    data = SynthSpheres("train", scale=opt.scale)
+    trainer.update_extra_state()
+    steps, step_ms, sync_free, ms = timed_steps(trainer, data, SHORT_STEPS, "cue training")
+    # the epoch's cap (beta itself is projected under it once, at the epoch's start)
+    cap, beta = trainer._sched.weights["_beta_cap"], float(trainer.net.sdf_density.beta)
+    phase("cue", config="r4_laplace_cue.ini", steps=CUE_STEPS, points=CUE_POINTS,
+          loss_first=losses[0], loss_last=losses[-1], seconds=secs,
+          ms_per_step=secs / CUE_STEPS * 1e3, train_steps=SHORT_STEPS,
+          train_loss_1=steps[0], train_loss_last=steps[-1], beta=beta, beta_cap=cap,
+          train_ms_per_step_after_3=float(np.mean(step_ms[3:])), sync_free_steps=sync_free,
+          notfinite=int(trainer.notfinite))
+
+
+def train_aux():
+    """r4_laplace_ref.ini past the start of every scheduled term, with the
+    stratified jitter: 10 steps, every loss term at the last."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(AUX_INI, stratified_sampling=True)
+    trainer = Trainer(opt, network_config(opt))
+    trainer.epoch = AUX_EPOCH - 1                    # the first step starts AUX_EPOCH
+    data = SynthSpheres("train", scale=opt.scale)
+    torch.cuda.synchronize()
+    trainer.update_extra_state()
+    losses, step_ms, sync_free, ms = timed_steps(trainer, data, SHORT_STEPS, "train_aux")
+    first, last = ({k: float(v) for k, v in m.items()
+                    if k not in ("loss", "mean_count", "notfinite", "K")} for m in (ms[0], ms[-1]))
+    missing = {"backsdf", "cauchy", "eikonal"} - set(last)
+    if missing or not all(np.isfinite(v) for v in [*first.values(), *last.values()]):
+        raise AssertionError(f"train_aux: terms {last}; missing {sorted(missing)}")
+    phase("train_aux", config="r4_laplace_ref.ini", epoch=trainer.epoch,
+          stratified_sampling=True, steps=SHORT_STEPS, loss_1=losses[0], loss_last=losses[-1],
+          **{f"last_{k}": v for k, v in last.items()},
+          **{f"first_{k}": v for k, v in first.items()}, K=ms[-1]["K"],
+          ms_per_step_after_3=float(np.mean(step_ms[3:])), sync_free_steps=sync_free,
+          notfinite=int(trainer.notfinite))
+
+
+def train_density(libs):
+    """synth_spheres_density.ini on the card's hash path: 10 steps through
+    the scatter_add_rows kernel.  Returns that kernel's launches."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import HASH_KERNEL_PATH, card_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = card_options(DENSITY_INI)
+    cfg = network_config(opt)
+    if cfg.use_sdf or opt.hash_scatter_impl != HASH_KERNEL_PATH["hash_scatter_impl"] \
+            or not cfg.hash_custom_grad:
+        raise AssertionError("synth_spheres_density.ini is not a density field on the kernel path")
+    data = SynthSpheres("train", scale=opt.scale)
+    trainer = Trainer(opt, cfg)
+    for lib in libs.values():                        # the density path starts here
+        lib.launches = 0
+    torch.cuda.synchronize()
+    trainer.update_extra_state()
+    losses, step_ms, sync_free, ms = timed_steps(trainer, data, SHORT_STEPS, "train_density")
+    m = ms[-1]
+    launches = libs["scatter_add_rows"].launches     # and ends here
+    if not launches:
+        raise AssertionError("train_density: scatter_add_rows was not launched")
+    phase("train_density", config="synth_spheres_density.ini", steps=SHORT_STEPS,
+          loss_1=losses[0], loss_last=losses[-1], ms_per_step_after_3=float(np.mean(step_ms[3:])),
+          rays_per_s=opt.num_rays / float(np.mean(step_ms[3:])) * 1e3,
+          mean_samples_per_ray=float(m["mean_count"]), sync_free_steps=sync_free,
+          notfinite=int(trainer.notfinite), scatter_launches=launches,
+          grid_occupied=float(trainer.grid.bitfield.float().mean()))
+    return launches
 
 
 def main() -> int:
@@ -639,31 +935,13 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     trainer.update_extra_state()
     occupied = float(trainer.grid.bitfield.float().mean())
-    losses, step_ms, sync_free = [], [], 0
-    for i in range(TRAIN_STEPS):
-        # a step that neither starts an epoch nor refreshes the grid must not
-        # block the host: any synchronising call in it raises
-        guard = not trainer.step_may_sync()
-        t = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error" if guard else "default")
-        try:
-            m = trainer.train_step(train)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        sync_free += guard
-        losses.append(float(m["loss"]))
-        if not np.isfinite(losses[-1]):
-            raise AssertionError(f"step {i + 1}: loss {losses[-1]}")
+    losses, step_ms, sync_free, ms = timed_steps(trainer, train, TRAIN_STEPS, "train")
+    m = ms[-1]
     ms_per_step = float(np.mean(step_ms[3:]))
     launches_train = libs["scatter_add_rows"].launches
     if launches_train < TRAIN_STEPS:
         raise AssertionError(f"scatter_add_rows launched {launches_train} times in "
                              f"{TRAIN_STEPS} steps; expected at least one per step")
-    if int(trainer.notfinite) or sync_free < TRAIN_STEPS - 3:
-        raise AssertionError(f"notfinite {int(trainer.notfinite)}, {sync_free} steps "
-                             "checked for host syncs")
     phase("train", steps=TRAIN_STEPS, loss_1=losses[0], loss_20=losses[-1],
           notfinite=int(trainer.notfinite), mean_samples_per_ray=float(m["mean_count"]),
           K=m["K"], sync_free_steps=sync_free,
@@ -689,8 +967,16 @@ def main() -> int:
           seconds=render_s, rays_per_s=val.H * val.W / render_s)
 
     phase("cp_parity", **check_cp_parity())
+    phase("ours_parity", **check_cp_parity("scenes/synth_spheres_ours.ini", "ours_parity"))
     train_cp(libs)
     render_cp(libs)
+    trainer_ours, opt_ours = train_ours(libs)
+    relight(trainer_ours, opt_ours)
+    del trainer_ours
+    render_laplace()
+    cue()
+    train_aux()
+    density_launches = train_density(libs)
     import bench_torch
     phase("bench_torch", json.dumps(bench_torch.run()))
 
@@ -707,6 +993,8 @@ def main() -> int:
         bench_rows = row.pop("bench_rows")
         if bench_rows is None:                       # row 1: the train path's count
             row["launches"] = train_launches[row["name"]]
+            row["launches_by_path"] = {"train": row["launches"],
+                                       "train_density": density_launches}
             continue
         bench, pattern = bench_rows
         matched = [r for r in summaries[bench]["rows"] if re.fullmatch(pattern, r["name"])]

@@ -5,6 +5,9 @@ each leaf); nothing JAX-specific is read or unpickled.  A linear layer is
 ``{'w': [in, out], 'b': [out]}`` there and ``nn.Linear`` ([out, in]) here;
 the encoder and the density's scalar are loose parameters named by their
 pytree paths (``encoder.axes.0.2`` is ``params["encoder"]["axes"][0][2]``).
+
+:func:`merge_mlp` is the JAX trainer's ``_merge_tolerant`` for one MLP: a
+checkpoint tensor smaller than the current one fills its leading corner.
 """
 
 from __future__ import annotations
@@ -63,9 +66,48 @@ def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
     if set(params) != expected:
         raise ValueError(f"pytree keys {sorted(params)} != modules {sorted(expected)}")
     for name in ("encoder", "sdf_density"):
-        _load_leaves(getattr(net, name), params[name], name)
+        if name in params:
+            _load_leaves(getattr(net, name), params[name], name)
     for name in ("sdf_net", "diffuse_net", "color_net", "env_net"):
         if name in params:
             _load_mlp(getattr(net, name), params[name], name)
     return net
 
+
+def mlp_from_tree(tree) -> nn.ModuleList:
+    """An MLP built from a JAX-layout list of ``{"w": [in, out], "b": [out]}``."""
+    layers = nn.ModuleList()
+    for p in tree:
+        w = np.asarray(p["w"], np.float32)
+        layer = nn.Linear(w.shape[0], w.shape[1], bias="b" in p)
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+            if "b" in p:
+                layer.bias.copy_(torch.from_numpy(np.asarray(p["b"], np.float32)))
+        layers.append(layer)
+    return layers
+
+
+@torch.no_grad()
+def merge_mlp(layers: nn.ModuleList, tree) -> nn.ModuleList:
+    """``Trainer._merge_tolerant`` of the JAX package for one MLP: each
+    checkpoint tensor replaces the current one where the shapes are equal and
+    fills its leading corner where they are not (e.g. a 160-wide env net into
+    a 256-wide one).  A checkpoint of another structure (layer count, bias,
+    rank) is taken as it is, as the JAX trainer does.  Returns the module
+    that now holds the weights: ``layers`` itself, or a new one."""
+    def keys(layer):
+        return {"w", "b"} if layer.bias is not None else {"w"}
+
+    pairs = []
+    if len(tree) == len(layers) and all(set(p) == keys(l) for l, p in zip(layers, tree)):
+        for layer, p in zip(layers, tree):
+            pairs.append((layer.weight, np.asarray(p["w"], np.float32).T))
+            if layer.bias is not None:
+                pairs.append((layer.bias, np.asarray(p["b"], np.float32)))
+    if not pairs or any(dst.dim() != src.ndim for dst, src in pairs):
+        return mlp_from_tree(tree).to(layers[0].weight.device)
+    for dst, src in pairs:
+        corner = tuple(slice(0, min(a, b)) for a, b in zip(dst.shape, src.shape))
+        dst[corner] = torch.from_numpy(np.ascontiguousarray(src[corner])).to(dst.device)
+    return layers

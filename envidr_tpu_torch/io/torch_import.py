@@ -1,0 +1,91 @@
+"""Read the reference framework's PyTorch ``.pth`` files into the JAX
+package's parameter layout (counterpart of ``envidr_tpu/io/torch_import.py``).
+
+A linear layer comes out as ``{"w": [in, out], "b": [out]}`` of numpy
+arrays, as in the JAX pytree, so that one merge path
+(:mod:`envidr_tpu_torch.io.jax_params`) serves ``.pth`` and ``.ckpt`` files
+alike.  Files are read with ``weights_only=True``: a ``.pth`` cannot run
+code when it is loaded.
+
+Formats: full model state dicts (``{"model": {"sdf_net.0.weight": ...}}``),
+the per-environment relighting nets ``env_net_{i}.pth`` (keys
+``env_net{layer}.weight``, no dot before the index) and Sequential nets
+(``0.weight``, ``2.weight``, ...).  Weight-norm layers are collapsed to plain
+weights, ``w = g * v / ||v||_row``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A ``.pth`` file as a flat ``{key: ndarray}`` (``{"model": ...}`` unwrapped)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
+        sd = sd["model"]
+    return {k: (v.detach().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+            for k, v in sd.items()
+            if isinstance(v, (torch.Tensor, np.ndarray, int, float))}
+
+
+def _collapse_weight_norm(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    out = dict(sd)
+    for k in sd:
+        if k.endswith("weight_v"):
+            base = k[: -len("weight_v")]
+            v = sd[k]
+            norm = np.linalg.norm(v.reshape(v.shape[0], -1), axis=1, keepdims=True)
+            out[base + "weight"] = sd[base + "weight_g"] * v / np.maximum(norm, 1e-12)
+            out.pop(k)
+            out.pop(base + "weight_g", None)
+    return out
+
+
+def mlp_from_state(sd: Dict[str, np.ndarray], prefix: str = "") -> List[dict]:
+    """``{prefix}{i}.weight`` / ``.bias`` as an ordered list of linears
+    (ModuleList 0,1,2,..., Sequential 0,2,4,..., and ``env_net0.weight``)."""
+    sd = _collapse_weight_norm(sd)
+    pat = re.compile(re.escape(prefix) + r"\.?(\d+)\.weight$" if prefix else r"(\d+)\.weight$")
+    found = sorted((int(m.group(1)), k) for k in sd for m in [pat.fullmatch(k)] if m)
+    layers = []
+    for _, wkey in found:
+        layer = {"w": np.ascontiguousarray(sd[wkey].T)}
+        bkey = wkey[: -len("weight")] + "bias"
+        if bkey in sd:
+            layer["b"] = sd[bkey]
+        layers.append(layer)
+    if not layers:
+        raise KeyError(f"no linear layers under prefix {prefix!r}")
+    return layers
+
+
+def network_params_from_state(sd: Dict[str, np.ndarray]) -> dict:
+    """The parts of a full-model state dict that the port's network holds,
+    as a JAX-layout pytree; what the file lacks is left out."""
+    sd = _collapse_weight_norm(sd)
+    params: dict = {}
+    if "encoder.embeddings" in sd:
+        params["encoder"] = {"embeddings": sd["encoder.embeddings"]}
+    for leaf in ("beta", "variance"):
+        if f"sdf_density.{leaf}" in sd:
+            params["sdf_density"] = {leaf: sd[f"sdf_density.{leaf}"]}
+    for name in ("sdf_net", "diffuse_net", "color_net", "env_net"):
+        try:
+            params[name] = mlp_from_state(sd, name)
+        except KeyError:
+            pass
+    return params
+
+
+def load_env_net(path: str) -> List[dict]:
+    """One relighting env MLP from an ``env_net_{i}.pth`` (or Sequential) file."""
+    sd = load_state_dict(path)
+    try:
+        return mlp_from_state(sd, "env_net")
+    except KeyError:
+        return mlp_from_state(sd, "")

@@ -12,8 +12,9 @@ carry the JAX functions' names
 Ported so far: the hash encoder (``encoding_pos`` ``rolled_tiled``, and
 ``hashgrid`` / ``hashgrid_diff``, which select ``hash`` indexing with linear /
 smoothstep interpolation), the CP encoder (``cp``), the Laplace density and
-the NeuS alpha, the frequency/SH/IDE direction encoders, the diffuse,
-specular and environment MLPs.  Numerical normals, the background net, sphere
+the NeuS alpha, a density field (``use_sdf=False``: a ``trunc_exp`` sigma
+head, normals from -grad sigma), the frequency/SH/IDE direction encoders, the
+diffuse, specular and environment MLPs.  Numerical normals, the background net, sphere
 mode and the interreflection branch raise ``NotImplementedError`` until their
 slices land.
 """
@@ -244,7 +245,6 @@ def _unported(cfg: NetworkConfig):
     checks = {
         f"encoding_pos={cfg.encoding_pos!r}": cfg.encoding_pos not in (
             "rolled_tiled", "hashgrid", "hashgrid_diff", "cp"),
-        "use_sdf=False": not cfg.use_sdf,
         "numerical_normals": cfg.numerical_normals,
         "bg_radius > 0": cfg.bg_radius > 0,
         "material conditioning (sphere mode)": cfg.material_dims > 0,
@@ -317,9 +317,10 @@ class NeRFNetwork(nn.Module):
         else:
             self.encoder = _Params(
                 embeddings=init_hash_embeddings(cfg.hash_spec, generator=generator))
-        self.sdf_density = _Params(**(
-            density_ops.init_neus_params(cfg.init_variance) if cfg.use_neus_sdf
-            else density_ops.init_laplace_params(cfg.init_beta)))
+        if cfg.use_sdf:             # a density field has no SDF-to-density scalar
+            self.sdf_density = _Params(**(
+                density_ops.init_neus_params(cfg.init_variance) if cfg.use_neus_sdf
+                else density_ops.init_laplace_params(cfg.init_beta)))
         layers = []
         for l in range(cfg.num_layers):
             in_dim = cfg.sdf_in_dim if l == 0 else cfg.hidden_dim
@@ -361,14 +362,16 @@ class NeRFNetwork(nn.Module):
 
     def forward_geometry(self, xyz, level_mask=None,
                          gate: Optional[EncoderGradGate] = None) -> Dict[str, Any]:
-        """-> dict(sdf, geo_feat, roughness, blend_weight)."""
+        """-> dict(sdf or, for a density field, sigma; geo_feat, roughness,
+        blend_weight)."""
         cfg = self.cfg
         h = self.encode_position(xyz, level_mask, gate)
         for l, layer in enumerate(self.sdf_net):
             h = layer(h)
             if l != cfg.num_layers - 1:
                 h = F.relu(h)
-        out: Dict[str, Any] = {"sdf": h[..., 0]}
+        out: Dict[str, Any] = (
+            {"sdf": h[..., 0]} if cfg.use_sdf else {"sigma": density_ops.trunc_exp(h[..., 0])})
         out["geo_feat"] = feat_act(h[..., 1:1 + cfg.geo_feat_dim], cfg.geo_feat_act)
         if cfg.use_roughness and not cfg.diffuse_only and not cfg.bypass_roughness:
             raw = h[..., 1 + cfg.geo_feat_dim:2 + cfg.geo_feat_dim]
@@ -396,12 +399,14 @@ class NeRFNetwork(nn.Module):
             self.sdf_density.beta, cfg.beta_min if beta_min is None else beta_min,
             cfg.beta_max)
         if beta_cap is not None:
-            beta = torch.clamp(beta, max=beta_cap)
+            # the gradient splits at a tie, as jnp.minimum's does
+            beta = torch.minimum(beta, torch.as_tensor(beta_cap, device=beta.device))
         return density_ops.laplace_density(sdf, beta)
 
     def geometry_with_normals(self, xyz, level_mask=None, *, need_normals: bool = True,
                               normal_anneal_ratio: float = 1.0, create_graph: bool = True):
-        """forward_geometry + autodiff surface normals.
+        """forward_geometry + autodiff surface normals (of the SDF, or of
+        -sigma for a density field).
 
         Returns (geo_out, normals, raw_gradients).  With ``create_graph`` the
         gradients stay differentiable (the eikonal loss needs them); an eval
@@ -415,10 +420,12 @@ class NeRFNetwork(nn.Module):
             geo_out = self.forward_geometry(pts, level_mask, gate)
             gate.skip_table_grad = True
             try:
-                (grads,) = torch.autograd.grad(geo_out["sdf"].sum(), pts,
-                                               create_graph=create_graph)
+                field = geo_out["sdf"] if self.cfg.use_sdf else geo_out["sigma"]
+                (grads,) = torch.autograd.grad(field.sum(), pts, create_graph=create_graph)
             finally:
                 gate.skip_table_grad = False
+        if not self.cfg.use_sdf:
+            grads = -grads
         if not create_graph:
             geo_out = {k: (v.detach() if torch.is_tensor(v) else v)
                        for k, v in geo_out.items()}

@@ -1,10 +1,13 @@
 """Scene-mode renderer: occupancy-grid march, fixed sample budget, composite.
 
 Counterpart of ``envidr_tpu/render/scene.py:render_scene`` for the options
-this slice reaches (no background net, no secondary-ray gradients, no
-per-sample loss auxiliaries, no stratified jitter, no geometry-only mode).
-Under NeuS (``use_neus_sdf``) the network returns alphas, composited as they
-are, and the normals are always computed: the alpha reads them.
+the port reaches (no background net, no secondary-ray gradients, no
+geometry-only mode).  Under NeuS (``use_neus_sdf``) the network returns
+alphas, composited as they are, and the normals are always computed: the
+alpha reads them.  A density field (``use_sdf=False``) gives sigmas directly
+and ``sdfs = -sigma``.  ``with_loss_aux`` adds the consecutive-sample SDF
+relations the auxiliary losses read; ``stratified_sampling`` jitters the
+marched samples instead of the march.
 """
 
 from __future__ import annotations
@@ -34,17 +37,25 @@ class SceneRenderOptions:
     training: bool = False
     need_normals: bool = True
     coarse_march: bool = False      # two-level march (ops/marching.py)
+    with_loss_aux: bool = False     # relsdf/backsdf/orientation sample outputs
+    # per-sample stratified jitter after the march instead of perturbing the
+    # march itself (cuda_ray.py:78-88)
+    stratified_sampling: bool = False
 
 
 def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Tensor,
                  rays_o: torch.Tensor, rays_d: torch.Tensor, bg_color,
                  aabb: torch.Tensor, *, noise: Optional[torch.Tensor] = None,
+                 strat_noise: Optional[torch.Tensor] = None,
                  level_mask: Optional[torch.Tensor] = None,
                  normal_anneal_ratio: float = 1.0, cos_anneal_ratio: float = 1.0,
                  beta_cap=None, beta_min=None) -> Dict[str, Any]:
     """Render N rays.  ``noise`` [N] in [0, 1) perturbs the march start (used
-    only when ``opts.perturb``); ``bg_color`` is a scalar, [3] or [N, 3];
-    ``cos_anneal_ratio`` is NeuS's (1 at eval)."""
+    only when ``opts.perturb`` and not ``opts.stratified_sampling``);
+    ``strat_noise`` [N, K] in [0, 1) jitters each sample by up to half a base
+    step (used only when ``opts.training`` and ``opts.stratified_sampling``);
+    ``bg_color`` is a scalar, [3] or [N, 3]; ``cos_anneal_ratio`` is NeuS's
+    (1 at eval); ``beta_cap`` (a tensor) bounds the Laplace beta from above."""
     cfg = net.cfg
     N, K = rays_o.shape[0], opts.num_samples
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)
@@ -55,9 +66,17 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
                    grid_size=opts.grid_size, dt_gamma=opts.dt_gamma,
                    max_steps=opts.max_steps, num_samples=K,
                    early_stop_steps=opts.early_stop_steps,
-                   noise=noise if opts.perturb else None,
+                   noise=noise if opts.perturb and not opts.stratified_sampling else None,
                    coarse_march=opts.coarse_march)
     xyzs, dts = m.xyzs, m.dts
+    if opts.stratified_sampling and opts.training and strat_noise is not None:
+        # roll-differenced noise: consecutive segment lengths stay consistent
+        # while each sample moves within +-0.5 dt_base (scene.py:104-113)
+        dt_base = 2.0 * 1.7320508075688772 / opts.max_steps
+        jitter = (strat_noise * 2.0 - 1.0) * 0.5 * dt_base
+        strat = torch.roll(jitter, 1, dims=1) - jitter
+        dts = dts + strat
+        xyzs = xyzs + strat[..., None] * rays_d[:, None, :]
     dirs = rays_d[:, None, :].expand_as(xyzs)
 
     # the color MLPs need normals whenever a normal-derived feature is on
@@ -66,14 +85,17 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
     geo, normals, sdf_gradients = net.geometry_with_normals(
         xyzs, level_mask, need_normals=need_normals,
         normal_anneal_ratio=normal_anneal_ratio, create_graph=opts.training)
-    sdfs = geo["sdf"]
+    sdfs = geo["sdf"] if cfg.use_sdf else -geo["sigma"]
     roughness = geo["roughness"]
     if roughness is None:
         roughness = torch.full_like(sdfs[..., None], cfg.default_roughness)
 
-    sigmas = net.sdf_to_sigma(
-        sdfs, dirs=dirs, dists=dts, normals=normals,
-        cos_anneal_ratio=cos_anneal_ratio, beta_cap=beta_cap, beta_min=beta_min)
+    if cfg.use_sdf:
+        sigmas = net.sdf_to_sigma(
+            sdfs, dirs=dirs, dists=dts, normals=normals,
+            cos_anneal_ratio=cos_anneal_ratio, beta_cap=beta_cap, beta_min=beta_min)
+    else:
+        sigmas = geo["sigma"]
     zero = torch.zeros((), device=sigmas.device)
     sigmas = torch.where(m.mask, opts.density_scale * sigmas, zero)
     alphas = sigmas if cfg.use_neus_sdf else alphas_from_sigmas(sigmas, dts)
@@ -107,4 +129,16 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
                                      + (1.0 - weights_sum[..., None]) * bg)
     results["roughness_image"] = (w3 * roughness).sum(dim=-2)
     results["roughness"] = roughness
+
+    if opts.with_loss_aux:
+        # consecutive-sample SDF relations (cuda_ray.py:173-211), compacted:
+        # slots k and k+1 of a ray are consecutive marched samples
+        gap = m.ts[..., 1:] - m.ts[..., :-1]
+        # continuity: the gap is under 1.2 dt of the next sample (no voxel skipped)
+        point_mask = m.mask[..., :-1] & m.mask[..., 1:] & (gap < 1.2 * dts[..., 1:])
+        cos = ((dirs * normals.detach()).sum(dim=-1) if normals is not None
+               else torch.zeros_like(sdfs))
+        results.update(relsdf=sdfs[..., 1:] - sdfs[..., :-1], est_relsdf=gap * cos[..., :-1],
+                       cos=cos[..., :-1], point_mask=point_mask, sdf_weights=weights[..., :-1],
+                       sdf_dist=gap)
     return results

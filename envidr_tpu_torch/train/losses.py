@@ -1,9 +1,9 @@
 """Loss assembly of the scene train step.
 
-Counterpart of ``envidr_tpu/train/losses.py:compute_losses`` for the terms
-the scene configs of this slice turn on: the color term, the diffuse term,
-the mask BCE and the eikonal term.  The SDF-relation, back-face,
-orientation, Cauchy, entropy and sphere-surface terms raise until ported.
+Counterpart of ``envidr_tpu/train/losses.py:compute_losses`` for the scene
+terms: color, diffuse, mask BCE, the SDF relation (``relsdf``), the distance
+bound, back-face, orientation, Cauchy, entropy and eikonal terms.  The
+sphere-surface term (sphere mode) raises until ported.
 """
 
 from __future__ import annotations
@@ -12,6 +12,9 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+
+from envidr_tpu_torch.ops.density import laplace_density
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +40,7 @@ class LossFlags:
     weighted_eikonal: bool = False
 
     def unported(self):
-        names = ("use_relsdf_loss", "use_dist_bound", "use_backsdf_loss",
-                 "use_orientation_loss", "use_cauchy_loss", "use_entropy_loss",
-                 "use_sdf_loss")
-        return [n for n in names if getattr(self, n)]
+        return ["use_sdf_loss"] if self.use_sdf_loss else []
 
 
 DEFAULT_WEIGHTS = dict(
@@ -64,13 +64,16 @@ def _color_err(pred, gt, kind: str):
 
 def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFlags,
                    weights: Dict[str, float], *,
+                   beta: Optional[torch.Tensor] = None,
                    neus_inv_s: Optional[torch.Tensor] = None,
                    alpha_mask: Optional[torch.Tensor] = None,
-                   diffuse_gt: Optional[torch.Tensor] = None):
+                   diffuse_gt: Optional[torch.Tensor] = None,
+                   roughness: Optional[torch.Tensor] = None):
     """Returns (total_loss, per-term dict of detached scalars).
 
-    ``neus_inv_s`` is the NeuS sharpness; only the Cauchy and entropy terms
-    read it, and they raise until ported."""
+    ``beta`` (Laplace) or ``neus_inv_s`` (NeuS) is the density's sharpness,
+    which the Cauchy and entropy terms read; ``roughness`` [N, K, 1] weights
+    the Cauchy term under ``cauchy_roughness_weighted``."""
     unported = flags.unported()
     if unported:
         raise NotImplementedError(f"loss terms not ported yet: {unported}")
@@ -92,6 +95,72 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
         loss = loss + w["mask"] * t
         terms["mask"] = t
 
+    zero = torch.zeros((), device=gt_rgb.device)
+    pm = outputs.get("point_mask")
+
+    if flags.use_relsdf_loss:
+        l_d = (outputs["relsdf"] - outputs["est_relsdf"]) ** 2 * pm
+        t = l_d.mean() if flags.relsdf_mode == "mean" else l_d.sum()
+        loss = loss + w["relsdf"] * t
+        terms["relsdf"] = t
+
+    if flags.use_dist_bound:
+        l_db = F.relu(outputs["relsdf"].abs() - outputs["sdf_dist"]) ** 2
+        t = (l_db * pm).sum()
+        loss = loss + w["dist_bound"] * t
+        terms["dist_bound"] = t
+
+    if flags.use_backsdf_loss:
+        # penalise an SDF that rises along the ray (back faces), utils.py:738-749
+        wts, rel = outputs["sdf_weights"], outputs["relsdf"]
+        m = pm & (wts > flags.backsdf_thresh) & (rel > 0)
+        s_sq = rel ** 2
+        r_cos_sq = s_sq / (outputs["sdf_dist"].clamp_min(5e-4) ** 2 + s_sq)
+        num = torch.where(m, wts * r_cos_sq, zero).sum()
+        t = num if flags.backsdf_mode == "sum" else num / (1.0 + torch.where(m, wts, zero).sum())
+        loss = loss + w["backsdf"] * t
+        terms["backsdf"] = t
+
+    if flags.use_orientation_loss:
+        t = torch.where(pm, outputs["sdf_weights"] * F.relu(outputs["cos"]), zero).sum()
+        loss = loss + w["orientation"] * t
+        terms["orientation"] = t
+
+    reg_density = None
+    if flags.use_cauchy_loss or flags.use_entropy_loss:
+        if beta is not None:
+            b = beta if flags.cauchy_undetach_beta else beta.detach()
+            reg_density = laplace_density(outputs["sdfs"], b, 1.0)
+        elif neus_inv_s is not None:
+            # NeuS has no Laplace beta: the logistic CDF with the learned
+            # sharpness, the JAX package's analogue (losses.py:145-153)
+            s = neus_inv_s if flags.cauchy_undetach_beta else neus_inv_s.detach()
+            reg_density = torch.sigmoid(-outputs["sdfs"] * s)
+        else:
+            raise ValueError("cauchy/entropy loss needs a density sharpness: pass beta "
+                             "(Laplace) or neus_inv_s (NeuS)")
+
+    if flags.use_cauchy_loss:
+        # log1p of (1 - density)^2 pushes the density to 0 or 1 (utils.py:760-774)
+        scale = 4.0
+        rw = 1.0
+        if flags.cauchy_roughness_weighted and roughness is not None:
+            r = roughness.detach()[..., 0]
+            rw = torch.sigmoid(0.5 * (1.0 / r.clamp(2e-2, 0.1) - 25.0)) * 10.0
+        t = (1.0 / scale) * (torch.log1p((1.0 - reg_density) ** 2 * scale ** 2) * rw).mean()
+        loss = loss + w["cauchy"] * t
+        terms["cauchy"] = t
+
+    if flags.use_entropy_loss:
+        wts = outputs["sdf_weights"]
+        rd = reg_density[..., :-1] if reg_density.shape != wts.shape else reg_density
+        m = (wts > 0.02) & (rd > 0.05) & (rd < 0.95)
+        if pm is not None:
+            m = m & pm
+        t = torch.where(m, -torch.log(1.0 - rd + 1e-6) * wts, zero).sum()
+        loss = loss + w["entropy"] * t
+        terms["entropy"] = t
+
     if flags.use_eikonal_loss:
         norms = torch.linalg.vector_norm(outputs["sdf_gradients"], dim=-1)
         if flags.weighted_eikonal and "weights" in outputs:
@@ -99,8 +168,7 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
         mask = outputs.get("mask")
         if mask is not None and mask.shape == norms.shape:
             # masked mean over the valid marched samples only
-            t = torch.where(mask, (norms - 1.0) ** 2, torch.zeros((), device=norms.device)
-                            ).sum() / mask.sum().clamp_min(1)
+            t = torch.where(mask, (norms - 1.0) ** 2, zero).sum() / mask.sum().clamp_min(1)
         else:
             t = ((norms - 1.0) ** 2).mean()
         loss = loss + w["eikonal"] * t

@@ -4,6 +4,8 @@ over as numpy."""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 from typing import Any, Dict
 
@@ -49,6 +51,45 @@ def shared_model(seed: int = 0, **extra):
     return (jopt, jcfg, params), (topt, tcfg, net)
 
 
+def _one_torch_thread():
+    """One intra-op thread for torch while a module's tests run: under
+    pytest-xdist every worker's default of one thread a core oversubscribes
+    the machine, and a full-width render on the CPU (the checkpoint tests)
+    then takes ~100x its time alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def one_torch_thread_fixture(scope: str = "module", autouse: bool = True):
+    """``_one_torch_thread`` as a fixture; a test module takes it with
+    ``one_torch_thread = one_torch_thread_fixture()`` (all its tests) or
+    ``one_torch_thread_fixture("function", False)`` and
+    ``@pytest.mark.usefixtures("one_torch_thread")`` (some)."""
+    import pytest
+    return pytest.fixture(autouse=autouse, scope=scope)(_one_torch_thread)
+
+
+@contextlib.contextmanager
+def f32_cp_encoder():
+    """Both packages' ``NetworkConfig.cp_spec`` with ``compute_dtype='float32'``
+    while the block runs: a jitted JAX step then computes what the port
+    computes (under ``jit`` XLA drops the bf16 encoder's roundings, trap C3)."""
+    import pytest
+
+    import envidr_tpu.models.network as jnet
+    import envidr_tpu_torch.models.network as tnet
+
+    with pytest.MonkeyPatch.context() as mp:
+        for m in (jnet, tnet):
+            spec = m.NetworkConfig.cp_spec
+            mp.setattr(m.NetworkConfig, "cp_spec", property(
+                lambda cfg, spec=spec: dataclasses.replace(spec.fget(cfg),
+                                                           compute_dtype="float32")))
+        yield
+
+
 def rel_err(a, b) -> float:
     """max |a - b| / max |a| (the tolerance convention of ROADMAP C-3)."""
     a = np.asarray(a, np.float64)
@@ -81,10 +122,9 @@ def export_jax_layout(net, grads: bool = False) -> Dict[str, Any]:
                    "proj": [val(t) for t in net.encoder.proj]}
     else:
         encoder = {"embeddings": val(net.encoder.embeddings)}
-    out: Dict[str, Any] = {
-        "encoder": encoder,
-        "sdf_density": {k: val(t) for k, t in net.sdf_density.named_parameters()},
-    }
+    out: Dict[str, Any] = {"encoder": encoder}
+    if hasattr(net, "sdf_density"):            # not in a density field
+        out["sdf_density"] = {k: val(t) for k, t in net.sdf_density.named_parameters()}
     for name in ("sdf_net", "diffuse_net", "color_net", "env_net"):
         if hasattr(net, name):
             out[name] = []
