@@ -71,6 +71,33 @@ seconds:
   train_density  configs/synth_spheres_density.ini (use_sdf=False) through
            card_options, so on the scatter_add_rows kernel: 10 steps; launch
            counts are zeroed just before and read just after
+  indir_parity  one indirect train step (epoch 76 of
+           configs/scenes/shiny3_indir.ini: the three-pass render with grad
+           rays, the renv branch, the learned blend) of the trained shiny3
+           scene (assets/shiny3_backsdf_ep40.ckpt) on 256 rays of a train view,
+           the card against the CPU per tensor, the CP encoder in f32 under
+           PARITY_RTOL and in bf16 under CP_BF16_RTOL, and the error map's EMA
+           of the step
+  render_shiny3  that checkpoint (with its optimizer state) under
+           shiny3_indir.ini, val view 0 of data/synth_shiny3 (decoded by the
+           port's PNG decoder; the decode's seconds printed) at 400x400 through
+           the three passes: PSNR as the trainer's evaluate reads it, above
+           SHINY3_PSNR_MIN_DB, and the share of pixels the renv gate opens on
+  train_shiny3  shiny3_indir.ini at full width (CP 16 levels x rank 32, NeuS,
+           3x64 SDF and colour MLPs, env net 160, renv 4 -> 64x3 -> 12, 4096
+           rays) resumed from that checkpoint, the grid's unseen cells marked,
+           from epoch 76 (indirect pass and grad rays on, error-map sampling):
+           20 steps, the sync-free ones under sync debug mode "error"; the
+           frozen colour and diffuse nets bit-equal in the net and the EMA net,
+           renv_net moved, the error map changed, the renv gate open on some
+           samples; then save_checkpoint and load_checkpoint into a fresh
+           trainer, which must give back the parameters, the Adam moments and
+           both counts
+  train_stack  configs/scenes/shiny2_stack.ini (rolled_tiled hash grid, the
+           toaster schedule stack) through card_options on data/synth_shiny2
+           from epoch 18 (every term, the indirect pass and grad rays on): 10
+           steps, scatter_add_rows launched; launch counts are zeroed just
+           before and read just after
   bench_torch  bench_torch.py's function on the default config: its JSON line
   bench    the three micro-benchmarks of envidr_tpu_torch.tools at their full
            shapes with few iterations (every table row, hash_encode of both
@@ -140,7 +167,20 @@ LAPLACE_PSNR_MIN_DB = 23.68        # the JAX package's render of this view at
 AUX_INI = os.path.join(ROOT, "configs", "r4_laplace_ref.ini")
 AUX_EPOCH = 121                    # back-face and Cauchy on from 40, eikonal from 120
 DENSITY_INI = os.path.join(ROOT, "configs", "synth_spheres_density.ini")
-SHORT_STEPS = 10                   # train_aux and train_density
+SHORT_STEPS = 10                   # train_aux, train_density and train_stack
+SHINY3_INI = os.path.join(ROOT, "configs", "scenes", "shiny3_indir.ini")
+SHINY3_CKPT = os.path.join(ROOT, "assets", "shiny3_backsdf_ep40.ckpt")
+SHINY3_DATA = os.path.join(ROOT, "data", "synth_shiny3")
+# the scene configs' color_mlp_path lies under exps/, which holds logs only
+RENV_CKPT = os.path.join(ROOT, "assets", "renv_pretrain_best.ckpt")
+SHINY3_EPOCH = 76                  # indir_ref from 45, grad rays from 45 + 30 + 1
+SHINY3_PSNR_MIN_DB = 17.5591       # the JAX package's render of val view 0 at
+                                   # downscale 4 on the CPU reads 18.5591 dB
+                                   # (tests/indir_readings.py), less 1 dB; the
+                                   # card renders the full 400x400 view
+STACK_INI = os.path.join(ROOT, "configs", "scenes", "shiny2_stack.ini")
+SHINY2_DATA = os.path.join(ROOT, "data", "synth_shiny2")
+STACK_EPOCH = 18                   # indir_ref from 14, grad rays from 14 + 3 + 1
 CUE_STEPS, CUE_POINTS = 500, 131_072   # Trainer.train_geometric_cue's published defaults
 
 
@@ -885,6 +925,268 @@ def train_density(libs):
     return launches
 
 
+def load_shiny3():
+    """The synth_shiny3 train and val splits through the port's PNG decoder."""
+    from envidr_tpu_torch.data.nerf_dataset import NeRFDataset
+    t = time.perf_counter()
+    train = NeRFDataset(SHINY3_DATA, "train", scale=0.8)
+    val = NeRFDataset(SHINY3_DATA, "val", scale=0.8)
+    return train, val, time.perf_counter() - t
+
+
+def _shiny3_trainer(device=None, cp_dtype=None):
+    """shiny3_indir.ini resumed from the trained checkpoint (its optimizer
+    state included)."""
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.models.network import NeRFNetwork
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(SHINY3_INI, color_mlp_path=RENV_CKPT)
+    cfg = network_config(opt)
+    net = NeRFNetwork(cfg, generator=torch.Generator().manual_seed(0))
+    if cp_dtype is not None:
+        net.cp_spec = dataclasses.replace(net.cp_spec, compute_dtype=cp_dtype)
+    trainer = Trainer(opt, cfg, device=device, net=net)
+    trainer.load_checkpoint(SHINY3_CKPT)
+    return trainer
+
+
+def _indir_parity_step(device: str, cp_dtype: str, view, pick):
+    """One indirect step of the trained shiny3 scene on the rays ``pick`` of
+    the split ``view``'s view 0: loss, image and gradients as f64 CPU
+    tensors, the error map's row after the step's EMA, and the shares of
+    reflecting rays and of samples with the renv gate open."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.geometry.rays import full_image_rays, srgb_to_linear
+    from envidr_tpu_torch.train.schedules import resolve
+    from envidr_tpu_torch.train.trainer import update_error_row
+
+    tr = _shiny3_trainer(device, cp_dtype)
+    pose = torch.from_numpy(view.poses[:1])
+    rays_o, rays_d = full_image_rays(pose, view.intrinsics, view.H, view.W)
+    pix = torch.from_numpy(view.images[0].reshape(-1, 4)[pick].astype(np.float32) / 255.0)
+    rgb = srgb_to_linear(pix[:, :3])
+    gt = rgb * pix[:, 3:] + (1.0 - pix[:, 3:])
+    args = [t.to(device) for t in (rays_o[0][pick], rays_d[0][pick], gt, torch.ones_like(gt),
+                                   pix[:, 3])]
+    sched = resolve(tr.opt, SHINY3_EPOCH, tr.global_step)
+    loss, out, _ = tr.forward_loss(*args, K=32, sched=sched)
+    loss.backward()
+    ic = torch.from_numpy(np.random.default_rng(4).integers(0, 300, len(pick))).to(device)
+    err = (out["image"].detach() - args[2]).abs().mean(dim=-1)
+    row = update_error_row(tr.error_map[0], ic, err)
+    shares = (float(out["ref_mask"].float().mean()), float(out["renv_mask"].float().mean()))
+    return ({"loss": loss.detach().double().cpu().reshape(1),
+             "image": out["image"].detach().double().cpu(),
+             "error_map_row": row.double().cpu(),
+             **{n: p.grad.detach().double().cpu() for n, p in tr.net.named_parameters()
+                if p.grad is not None}}, shares)
+
+
+def check_indir_parity(val, renv_mask_image):
+    """The indirect step on the card against the CPU, per tensor (max |a - b|
+    / max |b|): the CP encoder in f32 under PARITY_RTOL, in bf16 under
+    CP_BF16_RTOL.  The rays: up to 64 pixels of val view 0 whose render
+    (render_shiny3's) opened the renv gate, 160 other foreground pixels and
+    32 background ones, so that renv_net takes a gradient."""
+    import numpy as np
+
+    alpha = val.images[0][..., 3].reshape(-1)
+    gate = np.flatnonzero(renv_mask_image.reshape(-1) > 0.5)
+    rng = np.random.default_rng(3)
+    gate = rng.choice(gate, min(64, gate.size), replace=False)
+    fg = np.setdiff1d(np.flatnonzero(alpha > 0), gate)
+    pick = np.concatenate([gate, rng.choice(fg, 160, replace=False),
+                           rng.choice(np.flatnonzero(alpha == 0), 32, replace=False)])
+    result = {"gate_pixels": int(gate.size)}
+    for cp_dtype, tol in (("float32", PARITY_RTOL), ("bfloat16", CP_BF16_RTOL)):
+        cpu, shares = _indir_parity_step("cpu", cp_dtype, val, pick)
+        card, card_shares = _indir_parity_step("cuda", cp_dtype, val, pick)
+        rel = {n: float((card[n] - cpu[n]).abs().max()) / max(float(cpu[n].abs().max()), 1e-30)
+               for n in cpu}
+        phase("indir_parity", f"card_vs_cpu_{cp_dtype}", json.dumps(rel))
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= tol or set(card) != set(cpu):
+            raise AssertionError(f"indirect step ({cp_dtype} encoder): card and CPU disagree "
+                                 f"on {worst}: {rel[worst]} > {tol}")
+        if not float(cpu["renv_net.0.weight"].abs().max()) > 0.0:
+            raise AssertionError("indir_parity: renv_net took no gradient")
+        result.update({f"{cp_dtype}_max_rel_err": rel[worst], f"{cp_dtype}_worst": worst,
+                       f"{cp_dtype}_tolerance": tol, "reflecting_rays": shares[0],
+                       "renv_open_samples_cpu": shares[1],
+                       "renv_open_samples_card": card_shares[1]})
+    return result
+
+
+def render_shiny3(val, decode_s):
+    """The trained shiny3 scene: val view 0 at 400x400 through the three
+    passes.  The same model rendered in one pass (the renv branch shut, as a
+    config without the indirect pass renders it) gives the readings that
+    depend on pass 2 and the blend: on the pixels where the gate opens,
+    their PSNR and the change the indirect branch makes."""
+    import copy
+
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.train.metrics import psnr
+    from envidr_tpu_torch.train.trainer import eval_pair
+
+    trainer = _shiny3_trainer()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = trainer.render_view(val, 0)
+    render_s = time.perf_counter() - t
+    img = res["image"]
+    if img.shape != (val.H, val.W, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"render_shiny3: shape {img.shape}, finite {np.isfinite(img).all()}")
+    pred, gt = eval_pair(res, val, 0, trainer.opt)
+    p = psnr(pred, gt)
+    if not p > SHINY3_PSNR_MIN_DB:
+        raise AssertionError(f"render_shiny3: PSNR {p} dB <= {SHINY3_PSNR_MIN_DB}")
+    single = copy.copy(trainer)
+    single.opt = dataclasses.replace(trainer.opt, indir_ref_start_iter=-1)
+    pred_1, _ = eval_pair(single.render_view(val, 0), val, 0, single.opt)
+    mask = res["renv_mask_image"]
+    gate = mask > 0.5
+    change = np.abs(pred - pred_1).max(axis=-1)
+    effect = float(change[gate].max()) if gate.any() else 0.0
+    if not effect > 0.0:
+        raise AssertionError("render_shiny3: the indirect branch changed no gate pixel")
+    phase("render_shiny3", checkpoint=os.path.relpath(SHINY3_CKPT, ROOT), epoch=trainer.epoch,
+          size=f"{val.H}x{val.W}", psnr_db=p, min_psnr_db=SHINY3_PSNR_MIN_DB,
+          renv_open_pixels=float(gate.mean()), renv_mask_mean=float(mask.mean()),
+          gate_psnr_db=psnr(pred[gate], gt[gate]),
+          gate_psnr_one_pass_db=psnr(pred_1[gate], gt[gate]), gate_max_change=effect,
+          shut_max_change=float(change[mask == 0].max()),
+          eval_K=trainer.eval_samples_budget(), seconds=render_s, decode_s=decode_s)
+    return res["renv_mask_image"]
+
+
+def train_shiny3(train, libs):
+    """shiny3_indir.ini at full width from the trained checkpoint at epoch 76:
+    20 steps, then a checkpoint round trip."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.train.trainer import Trainer, frozen_modules
+
+    opt = load_options(SHINY3_INI, color_mlp_path=RENV_CKPT)
+    cfg = network_config(opt)
+    spec = cfg.cp_spec
+    frozen = frozen_modules(opt)
+    assert_widths("shiny3_indir.ini", dict(
+        levels=spec.num_levels, rank=spec.rank, compute_dtype=spec.compute_dtype,
+        hidden=cfg.hidden_dim, hidden_color=cfg.hidden_dim_color, hidden_env=cfg.hidden_dim_env,
+        rays=opt.num_rays, neus=cfg.use_neus_sdf, renv=cfg.use_renv,
+        learn_blend=cfg.learn_indir_blend, error_map=opt.error_map, frozen=sorted(frozen)), dict(
+        levels=16, rank=32, compute_dtype="bfloat16", hidden=64, hidden_color=64, hidden_env=160,
+        rays=4096, neus=True, renv=True, learn_blend=True, error_map=True,
+        frozen=["color_net", "diffuse_net"]))
+    trainer = _shiny3_trainer()
+    if [tuple(l.weight.shape) for l in trainer.net.renv_net] != [(64, 4), (64, 64), (64, 64),
+                                                                 (12, 64)]:
+        raise AssertionError("train_shiny3: renv_net is not 4 -> 64x3 -> 12")
+    trainer.mark_untrained_grid(train.poses, train.intrinsics)
+    unseen = float((trainer.grid.density < 0).float().mean())
+    trainer.epoch = SHINY3_EPOCH - 1
+    keep = {name: [p.detach().clone() for p in getattr(trainer.net, name).parameters()]
+            for name in sorted(frozen) + ["renv_net"]}
+    frozen_ema = {name: [p.detach().clone() for p in getattr(trainer.ema_net, name).parameters()]
+                  for name in frozen}
+    error_map = trainer.error_map.clone()
+    for lib in libs.values():                        # the shiny3 path starts here
+        lib.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, sync_free, ms = timed_steps(trainer, train, TRAIN_STEPS, "train_shiny3")
+    launches = _launches(libs)                       # and ends here
+    if not (trainer._sched.indir_ref and trainer._sched.grad_rays and trainer._sched.use_error_map):
+        raise AssertionError("train_shiny3: the indirect pass, grad rays or the error map is off")
+    for name in frozen:
+        for which, net, before in (("net", trainer.net, keep[name]),
+                                   ("EMA net", trainer.ema_net, frozen_ema[name])):
+            if not all(torch.equal(a, b) for a, b in zip(before, getattr(net, name).parameters())):
+                raise AssertionError(f"train_shiny3: frozen {name} of the {which} moved")
+    if all(torch.equal(a, b) for a, b in zip(keep["renv_net"], trainer.net.renv_net.parameters())):
+        raise AssertionError("train_shiny3: renv_net did not move")
+    em_changed = int((trainer.error_map != error_map).sum())
+    renv_open = [float(m["renv_open"]) for m in ms]
+    if not em_changed or not max(renv_open) > 0.0:
+        raise AssertionError(f"train_shiny3: error map cells changed {em_changed}, renv gate "
+                             f"open on {renv_open}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms_per_step = float(np.mean(step_ms[3:]))
+    work = tempfile.mkdtemp(prefix="envidr_ckpt_")
+    try:
+        trainer.workspace = work
+        path = trainer.save_checkpoint()
+        again = _shiny3_trainer()
+        again.load_checkpoint(path)
+        a, b = trainer.optimizer, again.optimizer
+        same = (all(torch.equal(x, y) for x, y in zip(
+            [*trainer.net.parameters(), *trainer.ema_net.parameters(), *a.m, *a.v,
+             trainer.error_map], [*again.net.parameters(), *again.ema_net.parameters(), *b.m,
+                                  *b.v, again.error_map]))
+                and all(int(getattr(a, k)) == int(getattr(b, k))
+                        for k in ("count", "sched_count", "skipped")))
+        if not same:
+            raise AssertionError("train_shiny3: the checkpoint round trip changed the state")
+        counts = (int(b.count), int(b.sched_count))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase("train_shiny3", config="scenes/shiny3_indir.ini",
+          checkpoint=os.path.relpath(SHINY3_CKPT, ROOT), epoch=trainer.epoch, steps=TRAIN_STEPS,
+          loss_1=losses[0], loss_20=losses[-1], notfinite=int(trainer.notfinite),
+          sync_free_steps=sync_free, ms_per_step_after_3=ms_per_step,
+          rays_per_s=opt.num_rays / ms_per_step * 1e3, first_step_ms=step_ms[0],
+          mean_samples_per_ray=float(ms[-1]["mean_count"]), K=ms[-1]["K"],
+          renv_open_max=max(renv_open), renv_open_mean=float(np.mean(renv_open)),
+          error_map_cells_changed=em_changed, unseen_cells=unseen, frozen_bit_equal=True,
+          renv_moved=True, checkpoint_round_trip=True, adam_counts=repr(counts),
+          peak_mem_gib=peak, launches=launches)
+
+
+def train_stack(libs):
+    """shiny2_stack.ini on the card's hash path from epoch 18: 10 steps
+    through the scatter_add_rows kernel.  Returns that kernel's launches."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import HASH_KERNEL_PATH, card_options, network_config
+    from envidr_tpu_torch.data.nerf_dataset import NeRFDataset
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = card_options(STACK_INI, color_mlp_path=RENV_CKPT)
+    cfg = network_config(opt)
+    if opt.hash_scatter_impl != HASH_KERNEL_PATH["hash_scatter_impl"] or not cfg.hash_custom_grad:
+        raise AssertionError("shiny2_stack.ini is not on the kernel path")
+    t = time.perf_counter()
+    data = NeRFDataset(SHINY2_DATA, "train", scale=opt.scale)
+    decode_s = time.perf_counter() - t
+    trainer = Trainer(opt, cfg)
+    trainer.epoch = STACK_EPOCH - 1
+    for lib in libs.values():                        # the stack path starts here
+        lib.launches = 0
+    torch.cuda.synchronize()
+    losses, step_ms, sync_free, ms = timed_steps(trainer, data, SHORT_STEPS, "train_stack")
+    launches = libs["scatter_add_rows"].launches     # and ends here
+    sched = trainer._sched
+    if not launches or not (sched.indir_ref and sched.grad_rays):
+        raise AssertionError(f"train_stack: scatter_add_rows launches {launches}, indirect "
+                             f"{sched.indir_ref}, grad rays {sched.grad_rays}")
+    phase("train_stack", config="scenes/shiny2_stack.ini", epoch=trainer.epoch,
+          steps=SHORT_STEPS, loss_1=losses[0], loss_last=losses[-1], rays=sched.num_rays,
+          K=ms[-1]["K"], ms_per_step_after_3=float(np.mean(step_ms[3:])),
+          sync_free_steps=sync_free, notfinite=int(trainer.notfinite),
+          scatter_launches=launches, terms=repr(sorted(k for k in ms[-1] if k not in (
+              "loss", "mean_count", "notfinite", "K", "renv_open"))), decode_s=decode_s)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -977,6 +1279,13 @@ def main() -> int:
     cue()
     train_aux()
     density_launches = train_density(libs)
+    shiny3_train, shiny3_val, decode_s = load_shiny3()
+    phase("decode", scene=os.path.relpath(SHINY3_DATA, ROOT), train_views=len(shiny3_train),
+          val_views=len(shiny3_val), size=f"{shiny3_train.H}x{shiny3_train.W}", seconds=decode_s)
+    renv_mask_image = render_shiny3(shiny3_val, decode_s)
+    phase("indir_parity", **check_indir_parity(shiny3_val, renv_mask_image))
+    train_shiny3(shiny3_train, libs)
+    stack_launches = train_stack(libs)
     import bench_torch
     phase("bench_torch", json.dumps(bench_torch.run()))
 
@@ -994,7 +1303,8 @@ def main() -> int:
         if bench_rows is None:                       # row 1: the train path's count
             row["launches"] = train_launches[row["name"]]
             row["launches_by_path"] = {"train": row["launches"],
-                                       "train_density": density_launches}
+                                       "train_density": density_launches,
+                                       "train_stack": stack_launches}
             continue
         bench, pattern = bench_rows
         matched = [r for r in summaries[bench]["rows"] if re.fullmatch(pattern, r["name"])]

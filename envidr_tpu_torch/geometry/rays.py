@@ -61,6 +61,39 @@ def sampled_rays(generator: Optional[torch.Generator], poses: torch.Tensor, intr
     return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds}
 
 
+def error_map_rays(generator: Optional[torch.Generator], poses: torch.Tensor, intrinsics,
+                   H: int, W: int, N: int, error_map: torch.Tensor):
+    """N rays importance-sampled from each pose's [128*128] error map
+    (``utils.py:174-186``): a coarse cell drawn with probability in
+    proportion to its error (``torch.multinomial`` with replacement, in place
+    of ``jax.random.categorical``), then a uniform pixel inside it.
+    ``error_map`` [B, 128*128] -> rays_o, rays_d [B, N, 3], inds and
+    inds_coarse [B, N]."""
+    B = poses.shape[0]
+    inds_coarse = torch.multinomial(error_map.clamp_min(1e-12), N, replacement=True,
+                                    generator=generator)
+    fx_r = torch.rand((B, N), generator=generator, device=poses.device)
+    fy_r = torch.rand((B, N), generator=generator, device=poses.device)
+    return error_map_draws_to_rays(poses, intrinsics, H, W, inds_coarse, fx_r, fy_r)
+
+
+def error_map_draws_to_rays(poses: torch.Tensor, intrinsics, H: int, W: int,
+                            inds_coarse: torch.Tensor, fx_r: torch.Tensor, fy_r: torch.Tensor):
+    """The rays of error-map draws: the coarse cell ``inds_coarse`` [B, N] of
+    the 128x128 map and a uniform offset ``(fx_r, fy_r)`` in [0, 1) inside it."""
+    fx, fy, cx, cy = intrinsics
+    inds_x = torch.div(inds_coarse, 128, rounding_mode="floor")
+    inds_y = inds_coarse % 128
+    sx, sy = H / 128.0, W / 128.0
+    ix = torch.clamp((inds_x * sx + fx_r * sx).to(torch.int32), 0, H - 1)
+    iy = torch.clamp((inds_y * sy + fy_r * sy).to(torch.int32), 0, W - 1)
+    inds = ix.long() * W + iy.long()
+    i = (inds % W).float() + 0.5
+    j = torch.div(inds, W, rounding_mode="floor").float() + 0.5
+    rays_o, rays_d = _rays_from_pixels(poses, i, j, fx, fy, cx, cy)
+    return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds, "inds_coarse": inds_coarse}
+
+
 def reflect_dir(w_o: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
     """u = 2 (n.v) n - v; w_o points from the surface to the camera."""
     return 2.0 * (w_o * normals).sum(dim=-1, keepdim=True) * normals - w_o
@@ -85,3 +118,7 @@ def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb: torch.T
 
 def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x < 0.0031308, 12.92 * x, 1.055 * x ** (1.0 / 2.4) - 0.055)

@@ -6,8 +6,9 @@ each leaf); nothing JAX-specific is read or unpickled.  A linear layer is
 the encoder and the density's scalar are loose parameters named by their
 pytree paths (``encoder.axes.0.2`` is ``params["encoder"]["axes"][0][2]``).
 
-:func:`merge_mlp` is the JAX trainer's ``_merge_tolerant`` for one MLP: a
-checkpoint tensor smaller than the current one fills its leading corner.
+:func:`merge_mlp` is the JAX trainer's ``_merge_tolerant`` for one MLP, and
+:func:`merge_leaves` for a module of loose leaves: a checkpoint tensor
+smaller than the current one fills its leading corner.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 from torch import nn
+
+# the MLP modules of the network, in the JAX pytree's naming
+MLP_MODULES = ("sdf_net", "diffuse_net", "color_net", "env_net", "renv_net")
 
 
 def _copy(dst: torch.Tensor, src, name: str):
@@ -68,10 +72,57 @@ def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
     for name in ("encoder", "sdf_density"):
         if name in params:
             _load_leaves(getattr(net, name), params[name], name)
-    for name in ("sdf_net", "diffuse_net", "color_net", "env_net"):
+    for name in MLP_MODULES:
         if name in params:
             _load_mlp(getattr(net, name), params[name], name)
     return net
+
+
+def module_arrays(module: nn.Module, tree) -> list:
+    """The arrays of a JAX subtree in the order of ``module.parameters()``
+    and in the port's layout (a linear layer's ``w`` transposed).  ``tree``
+    may be any pytree of the parameters' structure, e.g. Adam moments."""
+    if isinstance(module, nn.ModuleList):
+        out = []
+        for layer, p in zip(module, tree):
+            out.append(np.asarray(p["w"]).T)
+            if layer.bias is not None:
+                out.append(np.asarray(p["b"]))
+        return out
+    leaves = dict(_flatten(tree))
+    return [np.asarray(leaves[key]) for key, _ in module.named_parameters()]
+
+
+def module_tree(module: nn.Module, tensors) -> Any:
+    """Inverse of :func:`module_arrays`: ``tensors`` (one per parameter, in
+    order) as a JAX-layout pytree of numpy arrays."""
+    arrays = [t.detach().cpu().numpy() for t in tensors]
+    if isinstance(module, nn.ModuleList):
+        out, it = [], iter(arrays)
+        for layer in module:
+            p = {"w": np.ascontiguousarray(next(it).T)}
+            if layer.bias is not None:
+                p["b"] = next(it)
+            out.append(p)
+        return out
+    root: Dict[str, Any] = {}
+    for (key, _), a in zip(module.named_parameters(), arrays):
+        parts = key.split(".")
+        node = root
+        for k, nxt in zip(parts[:-1], parts[1:]):
+            node = node.setdefault(k, {})
+        node[parts[-1]] = a
+    return _lists(root)
+
+
+def _lists(node):
+    """Dicts keyed 0..n-1 become lists (the CP encoder's ``axes``, ``proj``)."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out) and sorted(map(int, out)) == list(range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 def mlp_from_tree(tree) -> nn.ModuleList:
@@ -111,3 +162,19 @@ def merge_mlp(layers: nn.ModuleList, tree) -> nn.ModuleList:
         corner = tuple(slice(0, min(a, b)) for a, b in zip(dst.shape, src.shape))
         dst[corner] = torch.from_numpy(np.ascontiguousarray(src[corner])).to(dst.device)
     return layers
+
+
+@torch.no_grad()
+def merge_leaves(module: nn.Module, tree, name: str):
+    """``_merge_tolerant`` for a module of loose leaves (the encoder, the
+    density's scalar): each array fills the leading corner of its parameter.
+    Another set of leaves raises."""
+    own = dict(module.named_parameters())
+    leaves = dict(_flatten(tree))
+    if set(leaves) != set(own):
+        raise ValueError(f"{name}: the checkpoint holds leaves {sorted(leaves)}, "
+                         f"the network {sorted(own)}")
+    for key, p in own.items():
+        a = np.asarray(leaves[key], np.float32)
+        corner = tuple(slice(0, min(x, y)) for x, y in zip(p.shape, a.shape))
+        p[corner] = torch.from_numpy(np.ascontiguousarray(a[corner])).to(p.device)

@@ -14,9 +14,11 @@ Ported so far: the hash encoder (``encoding_pos`` ``rolled_tiled``, and
 smoothstep interpolation), the CP encoder (``cp``), the Laplace density and
 the NeuS alpha, a density field (``use_sdf=False``: a ``trunc_exp`` sigma
 head, normals from -grad sigma), the frequency/SH/IDE direction encoders, the
-diffuse, specular and environment MLPs.  Numerical normals, the background net, sphere
-mode and the interreflection branch raise ``NotImplementedError`` until their
-slices land.
+diffuse, specular and environment MLPs, and the interreflection branch
+(``use_renv``: ``renv_net`` reads the colour and visibility of a reflected
+ray, gated by roughness, and ``learn_indir_blend`` blends it in).  Numerical
+normals, the background net, sphere mode, ``train_renv`` and
+``split_diffuse_env`` raise ``NotImplementedError`` until their slices land.
 """
 
 from __future__ import annotations
@@ -249,9 +251,8 @@ def _unported(cfg: NetworkConfig):
         "bg_radius > 0": cfg.bg_radius > 0,
         "material conditioning (sphere mode)": cfg.material_dims > 0,
         "env_sph_mode": cfg.env_sph_mode,
-        "use_renv / train_renv": cfg.use_renv or cfg.train_renv,
+        "train_renv": cfg.train_renv,
         "split_diffuse_env": cfg.split_diffuse_env,
-        "learn_indir_blend": cfg.learn_indir_blend,
         "skip_layers": bool(cfg.skip_layers),
         "geometric_init": cfg.geometric_init,
         "use_roughness without ensemble_mlp": cfg.use_roughness and not cfg.ensemble_mlp,
@@ -345,6 +346,10 @@ class NeRFNetwork(nn.Module):
                 [cfg.refdir_enc_dim] + [cfg.hidden_dim_env] * (cfg.num_layers_env - 1)
                 + [cfg.env_feat_dim], bias=not cfg.env_wo_bias, init=init,
                 generator=generator)
+            if cfg.use_renv:    # rgb + roughness -> env feature (network.py:304-310)
+                self.renv_net = init_mlp([4, 64, 64, 64, cfg.env_feat_dim],
+                                         bias=not cfg.env_wo_bias, init=init,
+                                         generator=generator)
 
     # ------------------------------------------------------------ geometry
 
@@ -379,7 +384,9 @@ class NeRFNetwork(nn.Module):
             out["roughness"] = rough * cfg.roughness_scale
         else:
             out["roughness"] = None    # the renderer uses cfg.default_roughness
-        out["blend_weight"] = None
+        out["blend_weight"] = (
+            torch.sigmoid(h[..., 2 + cfg.geo_feat_dim:3 + cfg.geo_feat_dim])
+            if cfg.learn_indir_blend and cfg.ensemble_mlp else None)
         return out
 
     def sdf_to_sigma(self, sdf, *, dirs=None, dists=None, normals=None,
@@ -416,7 +423,9 @@ class NeRFNetwork(nn.Module):
             return self.forward_geometry(xyz, level_mask), None, None
         gate = EncoderGradGate()
         with torch.enable_grad():
-            pts = xyz.detach().requires_grad_(True)
+            # positions that carry a gradient (the indirect pass's grad_ray
+            # samples) keep it, through the normals too
+            pts = xyz if xyz.requires_grad else xyz.detach().requires_grad_(True)
             geo_out = self.forward_geometry(pts, level_mask, gate)
             gate.skip_table_grad = True
             try:
@@ -448,8 +457,17 @@ class NeRFNetwork(nn.Module):
         return torch.sigmoid(y) if self.cfg.color_act == "sigmoid" else density_ops.trunc_exp(y)
 
     def forward_color(self, geo_feat, dirs, normals_enc=None, w_r_enc=None,
-                      n_dot_w_o=None, *, n_env_enc=None):
-        """Diffuse + specular color of each sample; returns (color, aux)."""
+                      n_dot_w_o=None, *, n_env_enc=None, r_images=None, roughness=None,
+                      blend_weight=None):
+        """Diffuse + specular color of each sample; returns (color, aux).
+
+        ``r_images`` [..., 3 or 4] is the colour (and visibility) of each
+        sample's reflected ray (the indirect pass).  Under ``use_renv`` the
+        specular colour is then blended with the colour head's reading of
+        ``renv_net``'s feature where the roughness is below
+        ``indir_roughness_thresh`` (and, with a visibility channel, the
+        reflected ray hit the scene: visibility > 0.9); ``aux`` then holds
+        ``renv_mask`` and ``blend``."""
         cfg = self.cfg
         aux: Dict[str, Any] = {}
         c_diffuse = 0.0
@@ -477,14 +495,42 @@ class NeRFNetwork(nn.Module):
                 h = geo_feat
             if cfg.normal_with_mlp:
                 h = torch.cat([h, normals_enc], dim=-1)
-            if w_r_enc is not None:
-                w_r_feat = self._env_feat(w_r_enc) if cfg.use_env_net else w_r_enc
-                h = torch.cat([h, w_r_feat], dim=-1)
-            if cfg.use_n_dot_viewdir:
-                h = torch.cat([h, n_dot_w_o], dim=-1)
-            c_specular = self._color_head(h)
+
+            def head(feat):
+                x = h if feat is None else torch.cat([h, feat], dim=-1)
+                return self._color_head(torch.cat([x, n_dot_w_o], dim=-1)
+                                        if cfg.use_n_dot_viewdir else x)
+
+            c_specular = head(None if w_r_enc is None else
+                              self._env_feat(w_r_enc) if cfg.use_env_net else w_r_enc)
+            if r_images is not None and cfg.use_renv:
+                c_specular = self._blend_renv(c_specular, head, r_images, roughness,
+                                              blend_weight, aux)
         aux["c_specular"] = c_specular
         return (c_diffuse + c_specular) * cfg.intensity_scale, aux
+
+    def _blend_renv(self, c_env, head, r_images, roughness, blend_weight, aux):
+        """The renv branch of ``forward_color`` (network.py:604-643)."""
+        cfg = self.cfg
+        renv_mask = roughness[..., 0] < cfg.indir_roughness_thresh
+        if r_images.shape[-1] == 4:
+            r_vis = r_images[..., 3]
+            r_images = r_images[..., :3] * r_vis.detach()[..., None]
+            renv_mask = renv_mask & (r_vis > 0.9)
+        remap = torch.sqrt(torch.clamp(roughness / cfg.roughness_scale / 0.75, min=0.0))
+        if cfg.learn_indir_blend and blend_weight is not None:
+            blend = 0.98 * blend_weight
+        else:     # the reference's roughness sigmoid (network.py:631)
+            blend = 0.95 * torch.sigmoid(80.0 * (remap - 0.18))
+        renv_feat = feat_act(apply_mlp(self.renv_net, torch.cat([r_images[..., :3], remap],
+                                                                dim=-1)), cfg.env_feat_act)
+        c_renv = head(renv_feat)
+        if cfg.indir_only:
+            c_env = c_env * 0.0
+        blended = c_env * blend + c_renv * (1.0 - blend)
+        aux["renv_mask"] = renv_mask
+        aux["blend"] = blend
+        return torch.where(renv_mask[..., None], blended, c_env)
 
     def get_color_mlp_extra_params(self, normals, dirs, roughness=0.0):
         """Normal encoding, IDE of the reflected direction, n.w_o and the

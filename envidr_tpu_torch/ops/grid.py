@@ -112,6 +112,36 @@ def update_grid(grid: OccupancyGrid, spec: GridSpec,
     return OccupancyGrid(density, density > thresh, mean_density, grid.iter_density + 1)
 
 
+def mark_untrained(grid: OccupancyGrid, spec: GridSpec, poses: torch.Tensor, intrinsics,
+                   *, chunk: int = 2**17) -> OccupancyGrid:
+    """Mark the cells that no training camera sees as -1 (renderer.py:200-263).
+
+    ``poses`` [B, 4, 4] c2w, ``intrinsics`` (fx, fy, cx, cy).  The coverage
+    test is the reference's axis-aligned field-of-view inequality
+    ``|x_cam| < cx / fx * z_cam + 2 * half_cell``, not a projection of the
+    cell's corners."""
+    H = spec.grid_size
+    fx, fy, cx, cy = intrinsics
+    dev = grid.density.device
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    coords = all_cell_coords(H, dev)
+    rows = []
+    for cas in range(spec.cascades):
+        bound = min(2.0**cas, spec.bound)
+        half = bound / H
+        covered = []
+        for start in range(0, coords.shape[0], chunk):
+            world = (2.0 * coords[start:start + chunk].float() / (H - 1) - 1.0) * (bound - half)
+            # world to camera: subtract the translation, multiply by R
+            cam = (world[None, :, :] - poses[:, None, :3, 3]) @ poses[:, :3, :3]
+            seen = ((cam[..., 2] > 0)
+                    & (cam[..., 0].abs() < cx / fx * cam[..., 2] + half * 2)
+                    & (cam[..., 1].abs() < cy / fy * cam[..., 2] + half * 2))
+            covered.append(seen.any(dim=0))
+        rows.append(torch.where(torch.cat(covered), grid.density[cas], -1.0))
+    return grid._replace(density=torch.stack(rows))
+
+
 def mean_step_count(counts: torch.Tensor, prev_mean, momentum: float = 0.9):
     """Running mean of marched samples per ray (drives the K budget)."""
     return prev_mean * momentum + (1.0 - momentum) * counts.float().mean()

@@ -1,8 +1,12 @@
 """Scene-mode renderer: occupancy-grid march, fixed sample budget, composite.
 
 Counterpart of ``envidr_tpu/render/scene.py:render_scene`` for the options
-the port reaches (no background net, no secondary-ray gradients, no
-geometry-only mode).  Under NeuS (``use_neus_sdf``) the network returns
+the port reaches (no background net).  The indirect pass
+(``render/indirect.py``) calls it three times: ``geometry_only`` (the
+normal image, depth and opacity; no colour), then on the reflected rays
+with ``grad_ray`` (image gradients reach the secondary rays' origins), then
+with ``r_images``, each ray's reflected colour and visibility, which the
+colour head's renv branch reads.  Under NeuS (``use_neus_sdf``) the network returns
 alphas, composited as they are, and the normals are always computed: the
 alpha reads them.  A density field (``use_sdf=False``) gives sigmas directly
 and ``sdfs = -sigma``.  ``with_loss_aux`` adds the consecutive-sample SDF
@@ -41,6 +45,9 @@ class SceneRenderOptions:
     # per-sample stratified jitter after the march instead of perturbing the
     # march itself (cuda_ray.py:78-88)
     stratified_sampling: bool = False
+    geometry_only: bool = False     # normals, depth and opacity only
+    grad_ray: bool = False          # secondary-ray gradient re-attachment
+    grad_rays_scale: float = 0.01
 
 
 def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Tensor,
@@ -49,18 +56,22 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
                  strat_noise: Optional[torch.Tensor] = None,
                  level_mask: Optional[torch.Tensor] = None,
                  normal_anneal_ratio: float = 1.0, cos_anneal_ratio: float = 1.0,
-                 beta_cap=None, beta_min=None) -> Dict[str, Any]:
+                 beta_cap=None, beta_min=None,
+                 r_images: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """Render N rays.  ``noise`` [N] in [0, 1) perturbs the march start (used
     only when ``opts.perturb`` and not ``opts.stratified_sampling``);
     ``strat_noise`` [N, K] in [0, 1) jitters each sample by up to half a base
     step (used only when ``opts.training`` and ``opts.stratified_sampling``);
     ``bg_color`` is a scalar, [3] or [N, 3]; ``cos_anneal_ratio`` is NeuS's
-    (1 at eval); ``beta_cap`` (a tensor) bounds the Laplace beta from above."""
+    (1 at eval); ``beta_cap`` (a tensor) bounds the Laplace beta from above;
+    ``r_images`` [N, C] is each ray's reflection image (C = 3 or 4)."""
     cfg = net.cfg
     N, K = rays_o.shape[0], opts.num_samples
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)
-    bg = torch.as_tensor(bg_color, dtype=rays_o.dtype, device=rays_o.device)
-    bg = bg.expand(N, 3)
+    if isinstance(bg_color, (int, float)):    # a fill: a copied number blocks the host
+        bg = torch.full((N, 3), float(bg_color), dtype=rays_o.dtype, device=rays_o.device)
+    else:
+        bg = torch.as_tensor(bg_color, dtype=rays_o.dtype, device=rays_o.device).expand(N, 3)
 
     m = march_rays(rays_o, rays_d, nears, fars, bitfield, bound=cfg.bound,
                    grid_size=opts.grid_size, dt_gamma=opts.dt_gamma,
@@ -77,11 +88,17 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
         strat = torch.roll(jitter, 1, dims=1) - jitter
         dts = dts + strat
         xyzs = xyzs + strat[..., None] * rays_d[:, None, :]
+    if opts.grad_ray:
+        # re-attach the samples to the ray origins so that image gradients
+        # reach the secondary rays' origins (cuda_ray.py:100-105)
+        s = opts.grad_rays_scale
+        xyzs = xyzs - s * rays_o.detach()[:, None, :] + s * rays_o[:, None, :]
     dirs = rays_d[:, None, :].expand_as(xyzs)
 
     # the color MLPs need normals whenever a normal-derived feature is on
-    need_normals = opts.need_normals or cfg.normal_with_mlp or cfg.use_reflected_dir \
-        or cfg.use_n_dot_viewdir or cfg.diffuse_with_env or cfg.use_neus_sdf
+    need_normals = opts.need_normals or (not opts.geometry_only and (
+        cfg.normal_with_mlp or cfg.use_reflected_dir or cfg.use_n_dot_viewdir
+        or cfg.diffuse_with_env)) or cfg.use_neus_sdf
     geo, normals, sdf_gradients = net.geometry_with_normals(
         xyzs, level_mask, need_normals=need_normals,
         normal_anneal_ratio=normal_anneal_ratio, create_graph=opts.training)
@@ -111,12 +128,21 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
     if sdf_gradients is not None:
         results["sdf_gradients"] = torch.where(m.mask[..., None], sdf_gradients, zero)
         results["weights"] = weights
+    w3 = weights[..., None]
+
+    if opts.geometry_only:
+        # the normals are not detached: the indirect pass reflects about this
+        # image.  The smooth normalisation keeps the backward finite where a
+        # background ray composites an exactly-zero normal (scene.py:165-176)
+        results["normal_image"] = _safe_normalize((w3 * normals).sum(dim=-2))
+        return results
 
     normals_enc, w_r_enc, n_dot_w_o, n_env_enc = net.get_color_mlp_extra_params(
         normals, dirs, roughness)
+    r_in = None if r_images is None else r_images[:, None, :].expand(N, K, r_images.shape[-1])
     rgbs, aux = net.forward_color(geo["geo_feat"], dirs, normals_enc, w_r_enc,
-                                  n_dot_w_o, n_env_enc=n_env_enc)
-    w3 = weights[..., None]
+                                  n_dot_w_o, n_env_enc=n_env_enc, r_images=r_in,
+                                  roughness=roughness, blend_weight=geo["blend_weight"])
     results["image"] = (w3 * rgbs).sum(dim=-2) + (1.0 - weights_sum[..., None]) * bg
     if normals is not None:
         # smooth normalisation: background rays composite to an exactly-zero
@@ -129,6 +155,9 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
                                      + (1.0 - weights_sum[..., None]) * bg)
     results["roughness_image"] = (w3 * roughness).sum(dim=-2)
     results["roughness"] = roughness
+    if "renv_mask" in aux:       # where the indirect branch is live
+        results["renv_mask"] = aux["renv_mask"] & m.mask
+        results["renv_mask_image"] = (weights * aux["renv_mask"].float()).sum(dim=-1)
 
     if opts.with_loss_aux:
         # consecutive-sample SDF relations (cuda_ray.py:173-211), compacted:

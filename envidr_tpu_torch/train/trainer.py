@@ -25,58 +25,81 @@ Counterpart of ``envidr_tpu/train/trainer.py`` (scene mode):
     and the cap handed to the render and the loss as a device tensor
     (``:389-390, :517-518, :585-593``);
   * the geometric cue, an SDF pre-fit to a sphere
-    (:meth:`Trainer.train_geometric_cue`, ``:265-300``).
+    (:meth:`Trainer.train_geometric_cue`, ``:265-300``);
+  * error-map ray sampling and its per-step EMA (``:407-413, :547-555``);
+  * the interreflection pass (``indir_ref``): the train step and the eval
+    render go through the three-pass render of ``render/indirect.py``
+    (``:469-490, :760-794``);
+  * cells no training camera sees marked untrained
+    (:meth:`Trainer.mark_untrained_grid`, ``:306-310``);
+  * :meth:`Trainer.evaluate` (PSNR and SSIM over a split, ``:817-904``).
 
 A step does not block the host: the finite check, the counters and the
 mean-count EMA stay on the device, and the host reads the EMA once, when an
 epoch chooses its K.  Only the grid refresh may synchronise.
 
 :meth:`Trainer.load_checkpoint` reads the JAX package's checkpoints (a
-pickle of numpy arrays; nothing else is unpickled).
+pickle of numpy arrays and optax's state tuples, read through an allow-list
+of stand-ins; nothing else is unpickled) and resumes as the JAX trainer does
+(``:1048-1103``): with the file's optimizer state, or else with the lr
+schedule re-timed to the restored step.  :meth:`Trainer.save_checkpoint`
+writes the JAX package's keys as plain numpy pytrees, which its
+``load_checkpoint`` reads, and the port's optimizer state under a key of its
+own (``torch_optimizer``).
 
-Error-map, patch and crop sampling, image batches, the indirect pass,
-sphere mode, the renv pretrain (``train_renv``, ``train_env_only``,
-``resume_mlps`` ``all`` and ``renv``) and saving checkpoints are not ported
-yet and raise.
+Patch and crop sampling, image batches, sphere mode, the renv pretrain
+(``train_renv``, ``train_env_only``), ``split_diffuse_env`` and LPIPS are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import importlib
+import os
 import pickle
-from typing import Dict, Optional
+import warnings
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from envidr_tpu_torch import resolve_device
 from envidr_tpu_torch.config import Options
-from envidr_tpu_torch.geometry.rays import full_image_rays, sampled_rays, srgb_to_linear
+from envidr_tpu_torch.geometry.rays import (
+    error_map_rays, full_image_rays, linear_to_srgb, sampled_rays, srgb_to_linear,
+)
 from envidr_tpu_torch.io import torch_import
-from envidr_tpu_torch.io.jax_params import load_jax_params, merge_mlp, mlp_from_tree
+from envidr_tpu_torch.io.jax_params import (
+    load_jax_params, merge_leaves, merge_mlp, mlp_from_tree, module_arrays, module_tree,
+)
 from envidr_tpu_torch.models.network import NeRFNetwork, NetworkConfig
 from envidr_tpu_torch.ops import density as density_ops
-from envidr_tpu_torch.ops.grid import GridSpec, OccupancyGrid, init_grid, update_grid
+from envidr_tpu_torch.ops.grid import (
+    GridSpec, OccupancyGrid, init_grid, mark_untrained, update_grid,
+)
+from envidr_tpu_torch.render.indirect import IndirectOptions, render_scene_indirect
 from envidr_tpu_torch.render.scene import SceneRenderOptions, render_scene
 from envidr_tpu_torch.train.losses import compute_losses
+from envidr_tpu_torch.train.metrics import PSNRMeter, SSIMMeter
 from envidr_tpu_torch.train.schedules import StepSchedule, level_mask, resolve
 
 # parameter group of each top-level module (network.py:772-819); the rest is "net"
 _GROUP_OF = {"encoder": "grid", "sdf_density": "scalar", "env_net": "env"}
 # frozen_mlps / resume_mlps names -> modules (trainer.py:73-78, 182-184)
-MLP_NAMES = {"specular": "color_net", "diffuse": "diffuse_net", "specular_env": "env_net"}
+MLP_NAMES = {"specular": "color_net", "diffuse": "diffuse_net", "renv": "renv_net",
+             "specular_env": "env_net"}
 CLIP_NORM = 10.0
 EMA_DECAY = 0.95
+ERROR_MAP_CELLS = 128 * 128
 
 
 def _unported(opt: Options):
     checks = {
-        "error_map": opt.error_map,
         "patch_size > 1": opt.patch_size > 1,
         "center_crop": opt.center_crop > 0,
         "image_batch > 1": opt.image_batch > 1,
-        "indir_ref": opt.indir_ref or opt.indir_ref_start_iter > 0,
         "env_sph_mode / render_env_on_sphere": opt.env_sph_mode or opt.render_env_on_sphere,
         "error_bound_sample": opt.error_bound_sample or opt.error_bound_start_iter > 0,
         "train_renv / train_env_only": opt.train_renv or opt.train_env_only,
@@ -87,7 +110,8 @@ def _unported(opt: Options):
 
 def frozen_modules(opt: Options) -> frozenset:
     """Top-level modules that ``frozen_mlps`` freezes (``_param_labels``)."""
-    return frozenset(MLP_NAMES[n] for n in ("specular", "diffuse") if n in opt.frozen_mlps)
+    return frozenset(MLP_NAMES[n] for n in ("specular", "diffuse", "renv")
+                     if n in opt.frozen_mlps)
 
 
 class Adam:
@@ -100,10 +124,13 @@ class Adam:
     no moments, no part in a clip norm; but ``apply_if_finite`` wraps the
     whole ``multi_transform``, so their gradients enter the finite check.
 
-    The finite flag, the moments and both counters stay on the device; each
-    state takes ``torch.where(finite, new, old)``, so a skipped update leaves
-    every tensor bit-equal.  A parameter without a gradient takes a zero one,
-    as in optax.
+    Two counters, as optax keeps them: ``count`` (``ScaleByAdamState``)
+    drives the bias correction and ``sched_count`` (``ScaleByScheduleState``)
+    the lr decay.  They are equal unless a resume re-timed the schedule
+    (:meth:`retime`).  The finite flag, the moments and the counters stay on
+    the device; each state takes ``torch.where(finite, new, old)``, so a
+    skipped update leaves every tensor bit-equal.  A parameter without a
+    gradient takes a zero one, as in optax.
     """
 
     B1, B2, EPS = 0.9, 0.99, 1e-15
@@ -116,8 +143,9 @@ class Adam:
         self.iters = opt.iters
         self.m, self.v = [], []
         self.bind(net)
-        self.count = torch.zeros((), dtype=torch.int64, device=device)     # applied
-        self.skipped = torch.zeros((), dtype=torch.int64, device=device)   # not finite
+        self.count = torch.zeros((), dtype=torch.int64, device=device)        # bias correction
+        self.sched_count = torch.zeros((), dtype=torch.int64, device=device)  # lr decay
+        self.skipped = torch.zeros((), dtype=torch.int64, device=device)      # not finite
 
     def bind(self, net: NeRFNetwork):
         """Read the groups of ``net``'s parameters.  After a module swap a
@@ -125,15 +153,78 @@ class Adam:
         with zero moments."""
         old = {id(p): mv for p, mv in zip(getattr(self, "params", []), zip(self.m, self.v))}
         params = {k: [] for k in self.base}
-        self.frozen = []
+        self.frozen, self.names = [], {}
         for name, module in net.named_children():
             dst = (self.frozen if name in self.frozen_names
                    else params[_GROUP_OF.get(name, "net")])
             dst.extend(module.parameters())
+            self.names.update({id(p): f"{name}.{k}" for k, p in module.named_parameters()})
         self.groups = [(self.base[k], ps) for k, ps in params.items() if ps]
         self.params = [p for _, ps in self.groups for p in ps]
         mv = [old.get(id(p)) or (torch.zeros_like(p), torch.zeros_like(p)) for p in self.params]
         self.m, self.v = [m for m, _ in mv], [v for _, v in mv]
+
+    def decay(self) -> torch.Tensor:
+        """The lr factor of the next update, ``0.1 ** min(sched_count / iters, 1)``."""
+        return 0.1 ** torch.clamp(self.sched_count.float() / self.iters, max=1.0)
+
+    @torch.no_grad()
+    def retime(self, step: int):
+        """A fresh optimizer whose lr schedule stands at ``step``: zero moments,
+        bias-correction count 0, schedule count ``step`` (``_retime_opt_state``)."""
+        for t in (*self.m, *self.v):
+            t.zero_()
+        self.count.zero_()
+        self.sched_count.fill_(step)
+
+    @torch.no_grad()
+    def load_optax_state(self, opt_state, net: NeRFNetwork):
+        """Restore the moments and both counts from the JAX trainer's optax
+        state (read through the checkpoint stand-ins): ``apply_if_finite``
+        over ``multi_transform``, one ``masked`` chain per group label, whose
+        moments hold the whole pytree with ``MaskedNode`` at the other
+        groups' leaves."""
+        states = opt_state.inner_state.inner_states
+        index = {id(p): i for i, p in enumerate(self.params)}
+        counts = set()
+        for name, module in net.named_children():
+            if name in self.frozen_names:
+                continue
+            chain = states[_GROUP_OF.get(name, "net")].inner_state
+            adam = next(s for s in chain if isinstance(s, ScaleByAdamState))
+            sched = next(s for s in chain if isinstance(s, ScaleByScheduleState))
+            counts.add((int(adam.count), int(sched.count)))
+            for p, m, v in zip(module.parameters(), module_arrays(module, adam.mu[name]),
+                               module_arrays(module, adam.nu[name])):
+                i = index[id(p)]
+                for dst, src in ((self.m[i], m), (self.v[i], v)):
+                    if tuple(dst.shape) != np.shape(src):
+                        raise ValueError(f"{name}: moment of shape {np.shape(src)} "
+                                         f"for a parameter of {tuple(dst.shape)}")
+                    dst.copy_(torch.from_numpy(np.asarray(src, np.float32)))
+        if len(counts) != 1:
+            raise ValueError(f"the groups' counts differ: {sorted(counts)}")
+        (count, sched_count), = counts
+        self.count.fill_(count)
+        self.sched_count.fill_(sched_count)
+        self.skipped.fill_(int(opt_state.total_notfinite))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The moments by parameter name and the counters, as numpy."""
+        def arrays(ts):
+            return {self.names[id(p)]: t.detach().cpu().numpy() for p, t in zip(self.params, ts)}
+        return {"count": int(self.count), "sched_count": int(self.sched_count),
+                "skipped": int(self.skipped), "m": arrays(self.m), "v": arrays(self.v)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]):
+        for p, m, v in zip(self.params, self.m, self.v):
+            name = self.names[id(p)]
+            m.copy_(torch.from_numpy(np.asarray(state["m"][name])))
+            v.copy_(torch.from_numpy(np.asarray(state["v"][name])))
+        self.count.fill_(int(state["count"]))
+        self.sched_count.fill_(int(state["sched_count"]))
+        self.skipped.fill_(int(state["skipped"]))
 
     @torch.no_grad()
     def step(self):
@@ -145,7 +236,7 @@ class Adam:
         count = self.count + 1
         bc1 = 1.0 - self.B1 ** count.float()
         bc2 = 1.0 - self.B2 ** count.float()
-        decay = 0.1 ** torch.clamp(self.count.float() / self.iters, max=1.0)
+        decay = self.decay()
         i = 0
         for (lr, ps), gs in zip(self.groups, grads):
             m, v = self.m[i:i + len(ps)], self.v[i:i + len(ps)]
@@ -166,6 +257,7 @@ class Adam:
             for old, new in zip([*ps, *m, *v], [*p_new, *m_new, *v_new]):
                 torch.where(finite, new, old, out=old)
         self.count += finite
+        self.sched_count += finite
         self.skipped += ~finite
 
 
@@ -198,6 +290,13 @@ class Trainer:
                                      device=self.device)
         self.eval_aabb = torch.tensor([-cfg.bound] * 3 + [cfg.bound] * 3,
                                       device=self.device)
+        self.obj_aabb = (torch.tensor(opt.obj_aabb, dtype=torch.float32, device=self.device)
+                         * opt.scale if opt.obj_aabb else None)
+        self.workspace = opt.workspace
+        self.stats: Dict[str, Any] = {"loss": [], "results": [], "ckpts": [],
+                                      "best_result": None}
+        # [len(dataset), 128*128] error per coarse cell, made at the first epoch
+        self.error_map: Optional[torch.Tensor] = None
         self.epoch = 0
         self.global_step = 0
         # running mean of samples per ray (< 0: none yet), f64 on the device
@@ -210,7 +309,8 @@ class Trainer:
 
     @property
     def applied_steps(self) -> torch.Tensor:
-        """Updates applied (drives the lr decay), a device tensor."""
+        """Updates applied since the moments started (Adam's bias-correction
+        count), a device tensor."""
         return self.optimizer.count
 
     @property
@@ -221,16 +321,28 @@ class Trainer:
     # ------------------------------------------- pretrained MLPs, relighting
 
     def resume_mlps(self, path: str, which):
-        """Load the MLPs ``which`` names (``specular``, ``diffuse``,
+        """Load the MLPs ``which`` names (``specular``, ``diffuse``, ``renv``,
         ``specular_env``) from a JAX checkpoint (``.ckpt``: its ``ema`` if it
         has one, else ``params``) or a reference ``.pth``, merged as
-        ``Trainer._resume_mlps`` merges them (:func:`merge_mlp`).  A name the
-        port cannot load raises; a module the file lacks raises."""
+        ``Trainer._resume_mlps`` merges them (:func:`merge_mlp`).  ``all``
+        first loads every module of the file that the network has (the
+        encoder's and the density's leaves too, each into the leading corner
+        of its own).  A name the port cannot load raises; a module the file
+        lacks raises."""
         if path.endswith(".ckpt"):
             payload = read_checkpoint(path)
             loaded = payload["ema"] if "ema" in payload else payload["params"]
         else:
             loaded = torch_import.network_params_from_state(torch_import.load_state_dict(path))
+        if "all" in which:      # the whole pretrained renderer (trainer.py:190-205)
+            for name, module in list(self.net.named_children()):
+                if name not in loaded:
+                    continue
+                if isinstance(module, torch.nn.ModuleList):
+                    setattr(self.net, name, merge_mlp(module, loaded[name]))
+                else:
+                    merge_leaves(module, loaded[name], name)
+            which = [w for w in which if w != "all"]
         for w in which:
             if w not in MLP_NAMES:
                 raise NotImplementedError(
@@ -286,6 +398,12 @@ class Trainer:
         with torch.no_grad():
             self.grid = update_grid(self.grid, self.grid_spec, density_fn,
                                     self.generator, fraction=fraction)
+
+    def mark_untrained_grid(self, poses, intrinsics):
+        """Mark the grid cells that no camera of ``poses`` [B, 4, 4] sees as
+        untrained (``trainer.py:306-310``); the JAX CLI calls it before scene
+        training."""
+        self.grid = mark_untrained(self.grid, self.grid_spec, poses, intrinsics)
 
     def train_geometric_cue(self, steps: int = 500, points: int = 131072,
                             radius: Optional[float] = None, *, given_points=None):
@@ -361,6 +479,10 @@ class Trainer:
                 # (trainer.py:585-593); no host sync
                 with torch.no_grad():
                     self.net.sdf_density.beta.clamp_(max=self._sched.weights["_beta_cap"])
+            if self.opt.error_map and self.error_map is None:
+                # sized by the dataset (provider.py:277-281), 0.1 everywhere
+                self.error_map = torch.full((len(dataset), ERROR_MAP_CELLS), 0.1,
+                                            device=self.device)
             self._K = self.sample_budget(self._sched)
             rng = np.random.default_rng(self.opt.seed * 100003 + self.epoch)
             self._order = list(dataset.epoch_order(rng))
@@ -380,13 +502,27 @@ class Trainer:
         cfg = self.cfg
         return bool(self.opt.beta_cap_sched) and cfg.use_sdf and not cfg.use_neus_sdf
 
+    def indirect_options(self, K: int, sched: Optional[StepSchedule] = None) -> IndirectOptions:
+        """The secondary pass of a train step (``K`` its budget, ``sched`` its
+        epoch; ``trainer.py:469-490``) or, with ``sched`` None, of an eval
+        render (``:760-794``)."""
+        opt = self.opt
+        return IndirectOptions(
+            indir_max_steps=opt.indir_max_steps,
+            indir_early_stop_steps=opt.indir_early_stop_steps,
+            indir_num_samples=(max(opt.indir_early_stop_steps, 16) if sched is None
+                               else min(K, max(opt.indir_early_stop_steps, 16))),
+            grad_rays=sched is not None and sched.grad_rays,
+            grad_rays_scale=opt.grad_rays_scale)
+
     def forward_loss(self, rays_o, rays_d, gt_rgb, bg, alpha_mask, *, K: int,
-                     sched: StepSchedule, noise: Optional[torch.Tensor] = None,
-                     strat_noise: Optional[torch.Tensor] = None):
+                     sched: StepSchedule, noise=None, strat_noise=None):
         """Render the rays with the live parameters and assemble the losses:
         -> (loss, render outputs, detached loss terms).  ``noise`` [N]
         perturbs the march, ``strat_noise`` [N, K] in [0, 1) jitters the
-        samples (``stratified_sampling``)."""
+        samples (``stratified_sampling``).  Under ``sched.indir_ref`` the
+        rays go through the three-pass render, and each of the two holds one
+        draw per pass (:func:`render_scene_indirect`)."""
         opt, w, flags, cfg = self.opt, sched.weights, sched.flags, self.cfg
         ropts = SceneRenderOptions(
             max_steps=sched.max_steps, num_samples=K,
@@ -401,14 +537,20 @@ class Trainer:
         # the epoch's cap as a device tensor (a fill, no host-to-device copy)
         beta_cap = (torch.full((), w["_beta_cap"], device=self.device)
                     if self._beta_capped() else None)
-        out = render_scene(
-            self.net, ropts, self.grid.bitfield, rays_o, rays_d, bg, self.aabb,
+        shared = dict(
             noise=noise, strat_noise=strat_noise,
             level_mask=level_mask(sched.enabled_levels, cfg.num_levels, self.device),
             normal_anneal_ratio=sched.normal_anneal_ratio,
             # the epoch's anneal, read afresh each step (nothing compiles it in)
             cos_anneal_ratio=sched.cos_anneal_ratio, beta_cap=beta_cap,
             beta_min=w["_beta_min"] if opt.beta_min_sched and laplace else None)
+        if sched.indir_ref:
+            out = render_scene_indirect(self.net, ropts, self.indirect_options(K, sched),
+                                        self.grid.bitfield, rays_o, rays_d, bg, self.aabb,
+                                        obj_aabb=self.obj_aabb, **shared)
+        else:
+            out = render_scene(self.net, ropts, self.grid.bitfield, rays_o, rays_d, bg,
+                               self.aabb, **shared)
         beta = neus_inv_s = None
         if laplace:          # the loss-side beta (trainer.py:515-518)
             beta = density_ops.laplace_beta(self.net.sdf_density.beta, w["_beta_min"],
@@ -451,8 +593,12 @@ class Trainer:
                             torch.as_tensor(dataset.poses, device=self.device))
         _, images, poses = self._images
         pose = poses[idx][None]
-        rays = sampled_rays(self.generator, pose, dataset.intrinsics, dataset.H,
-                            dataset.W, sched.num_rays)
+        if sched.use_error_map:     # importance sampling from the image's error map
+            rays = error_map_rays(self.generator, pose, dataset.intrinsics, dataset.H,
+                                  dataset.W, sched.num_rays, self.error_map[idx][None])
+        else:
+            rays = sampled_rays(self.generator, pose, dataset.intrinsics, dataset.H,
+                                dataset.W, sched.num_rays)
         rays_o, rays_d, inds = rays["rays_o"][0], rays["rays_d"][0], rays["inds"][0]
         pix = images[idx][inds].float() / 255.0
         if opt.color_space == "linear":
@@ -470,27 +616,43 @@ class Trainer:
             gt_rgb, alpha_mask = pix[..., :3], None
         noise = strat_noise = None
         if opt.stratified_sampling:     # jitter the samples, not the march
-            strat_noise = torch.rand((n, self._K), generator=self.generator, device=self.device)
+            if sched.indir_ref:         # one draw a pass, the secondary at its budget
+                k2 = self.indirect_options(self._K, sched).indir_num_samples
+                strat_noise = [torch.rand((n, k), generator=self.generator, device=self.device)
+                               for k in (self._K, k2, self._K)]
+            else:
+                strat_noise = torch.rand((n, self._K), generator=self.generator,
+                                         device=self.device)
         else:
-            noise = torch.rand((n,), generator=self.generator, device=self.device)
+            shape = (3, n) if sched.indir_ref else (n,)
+            noise = torch.rand(shape, generator=self.generator, device=self.device)
 
         loss, out, terms = self.forward_loss(rays_o, rays_d, gt_rgb, bg, alpha_mask,
                                              K=self._K, sched=sched, noise=noise,
                                              strat_noise=strat_noise)
         loss.backward()
         self._apply_update()
+        if sched.use_error_map:      # the per-ray EMA of the image's error (:547-555)
+            err = (out["image"].detach() - gt_rgb).abs().mean(dim=-1)
+            self.error_map[idx] = update_error_row(self.error_map[idx],
+                                                   rays["inds_coarse"][0], err)
         mc = out["counts"].float().mean()
         prev = torch.as_tensor(self.mean_count, dtype=torch.float64, device=self.device)
         self.mean_count = torch.where(prev < 0, mc.double(), 0.9 * prev + 0.1 * mc.double())
         self.global_step += 1
-        return {**terms, "loss": loss.detach(), "mean_count": mc,
+        extra = {}
+        if "renv_mask" in out:     # share of the marched samples the renv gate opens to
+            extra["renv_open"] = (out["renv_mask"].sum() / out["mask"].sum().clamp_min(1)).detach()
+        return {**terms, **extra, "loss": loss.detach(), "mean_count": mc,
                 "notfinite": self.notfinite.clone(), "K": self._K}
 
     # ------------------------------------------------------------ eval
 
     def render_image(self, pose, intrinsics, H: int, W: int, *, use_ema: bool = True,
                      bg_color: float = 1.0) -> Dict[str, np.ndarray]:
-        """Render a whole image in chunks of ``eval_ray_chunk`` rays."""
+        """Render a whole image in chunks of ``eval_ray_chunk`` rays; a model
+        with the renv branch that trains the indirect pass renders through
+        it (``trainer.py:760-794``)."""
         net = self.ema_net if use_ema else self.net
         opt = self.opt
         ropts = SceneRenderOptions(
@@ -503,29 +665,113 @@ class Trainer:
         rays_o, rays_d = rays_o[0], rays_d[0]
         chunk = opt.eval_ray_chunk or 4096
         keep = ("image", "depth", "weights_sum", "normal_image", "diffuse_image",
-                "specular_image", "roughness_image")
+                "specular_image", "roughness_image", "renv_mask_image")
+        indirect = self.cfg.use_renv and opt.indir_ref_start_iter > 0
         parts: Dict[str, list] = {}
         with torch.no_grad():
             for s in range(0, rays_o.shape[0], chunk):
-                res = render_scene(net, ropts, self.grid.bitfield, rays_o[s:s + chunk],
-                                   rays_d[s:s + chunk], bg_color, self.eval_aabb)
+                args = (ropts, self.grid.bitfield, rays_o[s:s + chunk], rays_d[s:s + chunk],
+                        bg_color, self.eval_aabb)
+                res = (render_scene_indirect(net, ropts, self.indirect_options(0), *args[1:],
+                                             obj_aabb=self.obj_aabb)
+                       if indirect else render_scene(net, *args))
                 for k in keep:
                     if k in res:
                         parts.setdefault(k, []).append(res[k])
         return {k: torch.cat(v).reshape((H, W) + v[0].shape[1:]).cpu().numpy()
                 for k, v in parts.items()}
 
+    def evaluate(self, dataset, *, max_images: int = 8, use_ema: bool = True,
+                 track_best: bool = True, indices=None) -> float:
+        """PSNR and SSIM of the renders of a split's first ``max_images``
+        views (or of ``indices``) against its images, on the test-time
+        background (``trainer.py:817-904``; LPIPS is not ported yet).  The
+        results join ``stats["results"]``; with ``track_best`` a new best PSNR
+        saves the ``best`` checkpoint (without optimizer state).  Returns the
+        mean PSNR."""
+        psnr_meter, ssim_meter = PSNRMeter(), SSIMMeter()
+        idxs = list(indices) if indices else list(range(min(len(dataset), max_images)))
+        for i in idxs:
+            pred, gt = eval_pair(self.render_view(dataset, i, use_ema=use_ema), dataset, i,
+                                 self.opt)
+            psnr_meter.update(pred, gt)
+            ssim_meter.update(pred, gt)
+        psnr = psnr_meter.measure()
+        self.stats["results"].append({"psnr": psnr, "ssim": ssim_meter.measure(),
+                                      "lpips": None, "lpips_kind": None, "epoch": self.epoch})
+        best = self.stats.get("best_result")
+        if track_best and (best is None or psnr > best):
+            self.stats["best_result"] = psnr
+            self.stats["best_result_ssim"] = ssim_meter.measure()
+            self.save_checkpoint(name="best", full=False)
+        return psnr
+
+    def render_view(self, dataset, i: int, *, use_ema: bool = True) -> Dict[str, np.ndarray]:
+        """:meth:`render_image` of a split's view ``i`` on the test-time
+        background."""
+        return self.render_image(dataset.poses[i], dataset.intrinsics, dataset.H, dataset.W,
+                                 use_ema=use_ema, bg_color=eval_bg(self.opt))
+
     # ------------------------------------------------------ checkpoints
 
+    def save_checkpoint(self, name: Optional[str] = None, full: bool = True) -> str:
+        """Write ``<workspace>/checkpoints/<name>.ckpt`` (``trainer.py:1018-1046``):
+        the JAX package's keys as plain numpy pytrees (``epoch``,
+        ``global_step``, ``iters``, ``mean_count``, ``stats``, ``params``,
+        ``ema``, ``grid`` and ``error_map``), so that its ``load_checkpoint``
+        reads the file, and with ``full`` the port's optimizer state under
+        ``torch_optimizer`` (which JAX ignores: it re-times its schedule).
+        Epoch checkpoints rotate, ``max_keep_ckpt`` of them kept; ``best``
+        is never rotated, nor is a file outside this workspace's
+        ``checkpoints/`` (a resumed ``stats["ckpts"]`` names the files of the
+        run that wrote it).  Returns the path."""
+        name = name or f"ep{self.epoch:04d}"
+
+        def tree(net):
+            return {n: module_tree(m, list(m.parameters())) for n, m in net.named_children()}
+
+        g = self.grid
+        payload = {
+            "epoch": self.epoch, "global_step": self.global_step, "iters": self.opt.iters,
+            "mean_count": float(self.mean_count), "stats": copy.deepcopy(self.stats),
+            "params": tree(self.net), "ema": tree(self.ema_net),
+            "grid": (g.density.cpu().numpy(), g.bitfield.cpu().numpy(),
+                     g.mean_density.cpu().numpy(), np.asarray(g.iter_density, np.int32)),
+        }
+        if self.error_map is not None:
+            payload["error_map"] = self.error_map.cpu().numpy()
+        if full:
+            payload["torch_optimizer"] = self.optimizer.state_dict()
+        directory = os.path.join(self.workspace, "checkpoints")
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f"{name}.ckpt")
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+        if name != "best":
+            self.stats["ckpts"].append(path)
+            while len(self.stats["ckpts"]) > self.opt.max_keep_ckpt:
+                old = self.stats["ckpts"].pop(0)
+                if (os.path.dirname(os.path.abspath(old)) == os.path.abspath(directory)
+                        and os.path.exists(old)):
+                    os.remove(old)
+        return path
+
     def load_checkpoint(self, path: str):
-        """Read a checkpoint of the JAX package (``Trainer.save_checkpoint``
-        there): ``epoch``, ``global_step``, ``mean_count``, ``params``,
-        ``ema`` and ``grid``.  The optimizer starts afresh."""
+        """Read a checkpoint of the JAX package or of :meth:`save_checkpoint`
+        and resume as ``Trainer.load_checkpoint`` there does
+        (``trainer.py:1048-1103``): ``epoch``, ``global_step``,
+        ``mean_count``, ``stats``, ``params``, ``ema``, ``grid`` and
+        ``error_map``; the optimizer from the file's state (the port's own,
+        or JAX's ``opt_state``: the Adam moments group by group and both
+        counts); a file without one re-times the lr schedule to
+        ``global_step``, with fresh moments, so that the first resumed step
+        takes the decayed lr and not the base lr."""
         payload = read_checkpoint(path)
         self.epoch = int(payload["epoch"])
         self.global_step = int(payload["global_step"])
         self.mean_count = torch.tensor(float(payload.get("mean_count", -1.0)),
                                        dtype=torch.float64, device=self.device)
+        self.stats = payload.get("stats", self.stats)
         load_jax_params(self.net, payload["params"])
         load_jax_params(self.ema_net, payload["ema"])
         density, bitfield, mean_density, iter_density = payload["grid"]
@@ -534,8 +780,60 @@ class Trainer:
             bitfield=torch.from_numpy(np.asarray(bitfield, bool)).to(self.device),
             mean_density=torch.tensor(float(mean_density), device=self.device),
             iter_density=int(iter_density))
+        if "error_map" in payload:
+            self.error_map = torch.from_numpy(
+                np.asarray(payload["error_map"], np.float32)).to(self.device)
+        restored = False
+        try:
+            if "torch_optimizer" in payload:
+                self.optimizer.load_state_dict(payload["torch_optimizer"])
+                restored = True
+            elif "opt_state" in payload:
+                self.optimizer.load_optax_state(payload["opt_state"], self.net)
+                restored = True
+        except (KeyError, ValueError, AttributeError, StopIteration) as e:
+            warnings.warn(f"{path}: the optimizer state does not fit ({e!r}); "
+                          "starting a fresh one")
+        if not restored and self.global_step > 0:
+            self.optimizer.retime(self.global_step)
+        if payload.get("iters") not in (None, self.opt.iters):
+            warnings.warn(f"opt.iters={self.opt.iters} differs from the checkpoint's "
+                          f"{payload['iters']}: the lr decay 0.1^(step/iters) jumps")
         self._sched, self._order = None, []
         return True
+
+
+def eval_bg(opt: Options) -> float:
+    return 1.0 if opt.render_bg_color == "white" else 0.0
+
+
+def eval_pair(res: Dict[str, np.ndarray], dataset, i: int, opt: Options):
+    """(render, ground truth) of view ``i`` as ``Trainer.evaluate`` compares
+    them, from ``res`` of :meth:`Trainer.render_view`: the render in sRGB
+    (from linear radiance under ``color_space=linear``) clipped to [0, 1],
+    the image composited on the test-time background."""
+    bg = eval_bg(opt)
+    pred = res["image"]
+    if opt.color_space == "linear":
+        pred = linear_to_srgb(torch.from_numpy(pred)).numpy()
+    gt = dataset.images[i].astype(np.float32) / 255.0
+    if gt.shape[-1] == 4:
+        gt = gt[..., :3] * gt[..., 3:] + bg * (1.0 - gt[..., 3:])
+    return np.clip(pred, 0.0, 1.0), gt
+
+
+def update_error_row(row: torch.Tensor, inds_coarse: torch.Tensor,
+                     err: torch.Tensor) -> torch.Tensor:
+    """One image's error map after a step: each drawn cell takes
+    ``0.9 * old + 0.1 * err`` of its ray (``trainer.py:547-555``).  Where
+    several rays drew one cell the last of them wins, by a rule that does
+    not depend on the order of a scatter's writes: the ``amax`` of the ray
+    indices that drew each cell picks the ray."""
+    vals = 0.9 * row[inds_coarse] + 0.1 * err
+    ray = torch.arange(inds_coarse.shape[0], device=row.device)
+    last = torch.full(row.shape, -1, dtype=torch.long, device=row.device).scatter_reduce(
+        0, inds_coarse, ray, "amax")
+    return torch.where(last >= 0, vals[last.clamp_min(0)], row)
 
 
 def read_checkpoint(path: str) -> dict:
@@ -544,7 +842,26 @@ def read_checkpoint(path: str) -> dict:
         return _ArrayUnpickler(f).load()
 
 
-# the only globals a checkpoint may name: numpy's array reconstruction
+# Stand-ins for the optax state tuples that a full JAX checkpoint pickles
+# (field for field; optax is not imported, nor installed on the card).
+EmptyState = collections.namedtuple("EmptyState", [])
+MaskedNode = collections.namedtuple("MaskedNode", [])
+ScaleByAdamState = collections.namedtuple("ScaleByAdamState", ["count", "mu", "nu"])
+ScaleByScheduleState = collections.namedtuple("ScaleByScheduleState", ["count"])
+PartitionState = collections.namedtuple("PartitionState", ["inner_states"])
+MaskedState = collections.namedtuple("MaskedState", ["inner_state"])
+ApplyIfFiniteState = collections.namedtuple(
+    "ApplyIfFiniteState", ["notfinite_count", "last_finite", "total_notfinite", "inner_state"])
+_OPTAX_STANDINS = {
+    ("optax._src.base", "EmptyState"): EmptyState,
+    ("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState,
+    ("optax._src.transform", "ScaleByScheduleState"): ScaleByScheduleState,
+    ("optax.transforms._combining", "PartitionState"): PartitionState,
+    ("optax.transforms._conditionality", "ApplyIfFiniteState"): ApplyIfFiniteState,
+    ("optax.transforms._masking", "MaskedState"): MaskedState,
+    ("optax.transforms._masking", "MaskedNode"): MaskedNode,
+}
+# the numpy globals a checkpoint may name: the array reconstruction
 # (numpy 2 pickles them under numpy._core, numpy 1 under numpy.core)
 _CKPT_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
                  ("numpy.core.multiarray", "_reconstruct"),
@@ -552,14 +869,18 @@ _CKPT_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
 
 
 class _ArrayUnpickler(pickle.Unpickler):
-    """Unpickles numpy arrays in plain containers and refuses every other
-    global, so a checkpoint cannot run code when it is read."""
+    """Unpickles numpy arrays and the optax state tuples above in plain
+    containers and refuses every other global, so a checkpoint cannot run
+    code when it is read."""
 
     def find_class(self, module, name):
+        if (module, name) in _OPTAX_STANDINS:
+            return _OPTAX_STANDINS[(module, name)]
         canon = module.replace("numpy._core", "numpy.core", 1)
         if (canon, name) not in _CKPT_GLOBALS:
             raise pickle.UnpicklingError(
-                f"checkpoint names {module}.{name}, not a part of a numpy array")
+                f"checkpoint names {module}.{name}, not a part of a numpy array "
+                "or an optax state")
         if canon == "numpy":
             return getattr(np, name)
         try:

@@ -125,7 +125,7 @@ def export_jax_layout(net, grads: bool = False) -> Dict[str, Any]:
     out: Dict[str, Any] = {"encoder": encoder}
     if hasattr(net, "sdf_density"):            # not in a density field
         out["sdf_density"] = {k: val(t) for k, t in net.sdf_density.named_parameters()}
-    for name in ("sdf_net", "diffuse_net", "color_net", "env_net"):
+    for name in ("sdf_net", "diffuse_net", "color_net", "env_net", "renv_net"):
         if hasattr(net, name):
             out[name] = []
             for layer in getattr(net, name):

@@ -14,6 +14,7 @@ to those roundings that the jitted and the op-by-op JAX steps differ by
 color_net 0.063, diffuse_net 0.021; tests/cp_readings.py).  The op-by-op JAX
 step rounds where the port rounds."""
 
+import copy
 import os
 
 import numpy as np
@@ -186,18 +187,26 @@ def test_cp_step_gradients_match(cp_step, leaf):
     assert max(errs.values()) <= tol, errs
 
 
-# the 11 shipped configs the port trains, each from the first epoch at which
+# the 17 shipped configs the port trains, each from the first epoch at which
 # every one of its scheduled terms is on: back-face and Cauchy from 40 and
 # eikonal from 120 (r4_laplace_ref.ini), the beta cap held from 60 or 80, the
-# beta floor from 150; two views, so the third step starts the next epoch
+# beta floor from 150, the indirect pass and then grad rays (indir_ref_start_iter
+# + grad_rays_start_iter + 1); two views, so the third step starts the next epoch
 TRAINED_CONFIGS = {
     "synth_spheres.ini": 1, "synth_spheres_sorted.ini": 1, "synth_spheres_cp.ini": 1,
     "synth_spheres_neus.ini": 1, "r4_laplace_betamin.ini": 151, "r4_laplace_ref.ini": 121,
     "synth_spheres_cp_laplace.ini": 81, "r4_laplace_cue.ini": 61, "r4_laplace_cue_cont.ini": 61,
     "synth_spheres_density.ini": 1, "scenes/synth_spheres_ours.ini": 1,
+    "scenes/synth_shiny_ours.ini": 51, "scenes/shiny2_indir.ini": 76,
+    "scenes/shiny3_indir.ini": 76, "scenes/shiny2_stack.ini": 18,
+    "scenes/materials.ini": 241, "scenes/toaster.ini": 241,
 }
-# the hash configs' table cut as tests/test_torch_helpers.py cuts it; the ours
-# config loads the pretrain's rendering MLPs (exps/ is not in the repo)
+RENV_PRETRAIN = os.path.join(ROOT, "assets", "renv_pretrain_best.ckpt")
+# the hash configs' table cut as tests/test_torch_helpers.py cuts it; the
+# scene configs load a pretrain's rendering MLPs (their own paths are under
+# exps/, which is not in the repo): the interreflection scenes the renv
+# pretrain's colour 28 -> 64 -> 64 -> 3, diffuse and renv nets
+_RENV = dict(color_mlp_path=RENV_PRETRAIN, hidden_dim_color=64)
 CONFIG_EXTRA = {
     "synth_spheres.ini": dict(log2_hashmap_size=12),
     "synth_spheres_sorted.ini": dict(log2_hashmap_size=12),
@@ -205,14 +214,23 @@ CONFIG_EXTRA = {
     "scenes/synth_spheres_ours.ini": dict(
         color_mlp_path=os.path.join(ROOT, "assets", "env_sphere_pretrain_best.ckpt"),
         hidden_dim_color=64, hidden_dim_env=160),
+    "scenes/synth_shiny_ours.ini": _RENV, "scenes/shiny2_indir.ini": _RENV,
+    "scenes/shiny3_indir.ini": _RENV,
+    # the ray-count schedules (2048 -> 4096 rays) cut to the test's 64 rays
+    "scenes/shiny2_stack.ini": dict(_RENV, log2_hashmap_size=12, num_rays_sched=()),
+    "scenes/materials.ini": dict(_RENV, log2_hashmap_size=12),
+    "scenes/toaster.ini": dict(_RENV, log2_hashmap_size=12, num_rays_sched=()),
 }
-# the 9 the port does not train yet, and what each lacks
+# the configs whose datasets the repo tracks read them through the port's
+# loader at downscale 8 (two views); materials and toaster read datasets
+# that are not in the repo and train on the in-memory sphere scene
+TRACKED_DATA = ("scenes/synth_shiny_ours.ini", "scenes/shiny2_indir.ini",
+                "scenes/shiny3_indir.ini", "scenes/shiny2_stack.ini")
+_DATA = {}
+# the 3 the port does not train yet, and what each lacks
 UNPORTED_CONFIGS = {
     "neural_renderer_cp.ini": "env_sph_mode", "neural_renderer_synth.ini": "env_sph_mode",
-    "neural_renderer_renv.ini": "env_sph_mode.*train_renv", "scenes/materials.ini": "indir_ref",
-    "scenes/shiny2_indir.ini": "indir_ref", "scenes/shiny2_stack.ini": "indir_ref",
-    "scenes/shiny3_indir.ini": "error_map, indir_ref", "scenes/synth_shiny_ours.ini": "indir_ref",
-    "scenes/toaster.ini": "indir_ref",
+    "neural_renderer_renv.ini": "env_sph_mode.*train_renv",
 }
 
 
@@ -221,7 +239,7 @@ def test_config_lists_cover_every_shipped_config():
     shipped = {os.path.relpath(p, os.path.join(ROOT, "configs"))
                for p in glob.glob(os.path.join(ROOT, "configs", "**", "*.ini"), recursive=True)}
     assert shipped == set(TRAINED_CONFIGS) | set(UNPORTED_CONFIGS)
-    assert (len(shipped), len(TRAINED_CONFIGS)) == (20, 11)
+    assert (len(shipped), len(TRAINED_CONFIGS)) == (20, 17)
 
 
 @pytest.mark.usefixtures("one_torch_thread")
@@ -230,6 +248,7 @@ def test_config_builds_a_trainer_and_takes_a_step(config):
     """Each config the port trains: a trainer on the CPU at small widths,
     three steps on the scene from the epoch at which all its scheduled terms
     are on, across an epoch boundary."""
+    from envidr_tpu_torch.data.nerf_dataset import NeRFDataset
     from envidr_tpu_torch.data.synth_scene import SynthSpheres
     opt = torch_load(os.path.join(ROOT, "configs", config),
                      **{**CP_SMALL, **CONFIG_EXTRA.get(config, {})})
@@ -237,7 +256,14 @@ def test_config_builds_a_trainer_and_takes_a_step(config):
     tr.epoch = TRAINED_CONFIGS[config] - 1
     frozen = {n: [p.detach().clone() for p in getattr(tr.net, n).parameters()]
               for n in tr.optimizer.frozen_names}
-    data = SynthSpheres("train", size=40, n=2, scale=opt.scale)
+    if config in TRACKED_DATA:
+        if opt.path not in _DATA:       # each scene decoded once a process
+            _DATA[opt.path] = NeRFDataset(os.path.join(ROOT, opt.path), "train",
+                                          scale=opt.scale, downscale=8)
+        data = copy.copy(_DATA[opt.path])
+        data.images, data.poses = data.images[:2], data.poses[:2]
+    else:
+        data = SynthSpheres("train", size=40, n=2, scale=opt.scale)
     ms = [tr.train_step(data) for _ in range(3)]
     assert all(np.isfinite(float(m["loss"])) for m in ms) and float(ms[0]["mean_count"]) > 0
     assert int(tr.notfinite) == 0 and int(tr.applied_steps) == 3
@@ -251,7 +277,11 @@ def test_config_builds_a_trainer_and_takes_a_step(config):
         assert ms[-1]["K"] == 128                   # the early stop raised at epoch 40
     for n, ps in frozen.items():
         assert all(torch.equal(a, b) for a, b in zip(ps, getattr(tr.net, n).parameters())), n
-    assert bool(frozen) == (config == "scenes/synth_spheres_ours.ini")
+    assert bool(frozen) == config.startswith("scenes/")
+    if opt.indir_ref_start_iter > 0:       # the three-pass render with grad rays
+        assert tr._sched.indir_ref and tr._sched.grad_rays and tr.cfg.use_renv
+        assert "renv_open" in ms[-1]
+        assert (tr.error_map is not None) == opt.error_map
 
 
 @pytest.mark.parametrize("config", sorted(UNPORTED_CONFIGS))

@@ -144,8 +144,8 @@ def test_merge_tolerant_donors_match_jax(tmp_path, kind):
 
 
 def test_unported_resume_names_raise(tmp_path):
-    opt = torch_load(OURS_INI, **{**OURS_SMALL, "resume_mlps": ("all",)})
-    with pytest.raises(NotImplementedError, match="resume_mlps='all'"):
+    opt = torch_load(OURS_INI, **{**OURS_SMALL, "resume_mlps": ("diffuse_env",)})
+    with pytest.raises(NotImplementedError, match="resume_mlps='diffuse_env'"):
         Trainer(opt, torch_netcfg(opt), device="cpu")
     opt = torch_load(OURS_INI, **{**OURS_SMALL, "resume_mlps": ("specular_env",)})
     with pytest.raises(ValueError, match="env_net"):      # the pretrain holds env_nets only
