@@ -103,6 +103,29 @@ seconds:
            shapes with few iterations (every table row, hash_encode of both
            indexings included); launch counts are zeroed just before and read
            just after
+  sphere_parity  a small sphere-mode step (neural_renderer_cp.ini cut small:
+           CP encoder, material, 2 env nets, the sdf, back-face and eikonal
+           terms) on the card against the CPU, per tensor: the encoder in f32
+           under PARITY_RTOL, in bf16 under CP_BF16_RTOL
+  train_sphere  neural_renderer_cp.ini at its published width (CP 16 x 32,
+           SDF 37 -> 64 -> 64 -> 14, colour 3 x 64, diffuse 2 layers, 11 env
+           nets 38 -> 160 x 3 -> 12, 16384 rays x 12 samples) on the env-sphere
+           set generated on the card (SPHERE_TRAIN_VIEWS views at 400x400): 2
+           steps of the diffuse term alone, then 20 from epoch 5, all after
+           the first under sync debug mode "error"; every env net a step chose
+           moves; launch counts are zeroed just before and read just after
+  train_sphere_hash  neural_renderer_synth.ini as shipped (hashgrid_diff, the
+           hash indexing, a 2^19 table) at full width: 5 steps
+  render_pretrain  assets/env_sphere_pretrain_best.ckpt (EMA) on generated val
+           views at 400x400 with their materials and env indices: PSNR of
+           view 0 above PRETRAIN_PSNR_MIN_DB
+  train_renv  neural_renderer_renv.ini with RENV_OVERRIDES on the decoded
+           data/env_sphere_renv (the decode's seconds printed): 10 steps;
+           every frozen module bit-equal in the net and the EMA net, renv_net
+           moved
+  render_renv  assets/renv_pretrain_best.ckpt on the renv set's val views at
+           400x400 with their mirror images and without: both PSNRs and the
+           largest change, which must be above 0
 
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit code
@@ -182,6 +205,30 @@ STACK_INI = os.path.join(ROOT, "configs", "scenes", "shiny2_stack.ini")
 SHINY2_DATA = os.path.join(ROOT, "data", "synth_shiny2")
 STACK_EPOCH = 18                   # indir_ref from 14, grad rays from 14 + 3 + 1
 CUE_STEPS, CUE_POINTS = 500, 131_072   # Trainer.train_geometric_cue's published defaults
+SPHERE_INI = os.path.join(ROOT, "configs", "neural_renderer_cp.ini")
+SPHERE_HASH_INI = os.path.join(ROOT, "configs", "neural_renderer_synth.ini")
+RENV_INI = os.path.join(ROOT, "configs", "neural_renderer_renv.ini")
+RENV_DATA = os.path.join(ROOT, "data", "env_sphere_renv")
+# the renv pretrain as tools/r3_campaign.sh:61-62 ran it: the CP pretrain
+# resumed whole, the CP encoder in place of the shipped hashgrid_diff
+RENV_OVERRIDES = dict(encoding_pos="cp", cp_rank=32, color_mlp_path=PRETRAIN_CKPT)
+SPHERE_TRAIN_VIEWS = 1200          # tools/gen_env_dataset.py's --n-train default
+SPHERE_EPOCH = 5                   # color_net_start_iter: the specular branch on
+SPHERE_HASH_STEPS = 5
+SPHERE_RENDER_VIEWS = 4
+PRETRAIN_PSNR_MIN_DB = 29.5866     # the JAX package's render of the generated val
+                                   # view 0 at 100x100 on the CPU reads 30.5866 dB
+                                   # (tests/sphere_readings.py), less 1 dB; the
+                                   # card renders the full 400x400 view
+# sphere_parity: neural_renderer_cp.ini cut as cp_parity cuts its config, two env nets
+SPHERE_PARITY_CUT = dict(num_levels=4, desired_resolution=64, cp_rank=8, hidden_dim=16,
+                         hidden_dim_color=16, hidden_dim_env=16, num_envs=2)
+# sphere_parity's probe rays (18 with shell samples outside the bound).  The
+# bf16 sphere step is ill-conditioned: on the CPU alone, one f32 ulp of ray
+# noise moves its table gradients by up to 6.2e-3 of a tensor's max at 64
+# rays and 2.2e-2 at 256 (tests/sphere_readings.py), so at 256 the noise
+# alone passes CP_BF16_RTOL (f32: 9.0e-5 and 1.1e-4)
+SPHERE_PARITY_RAYS = 64
 
 
 def phase(name: str, *words, **numbers):
@@ -879,7 +926,8 @@ def train_aux():
     trainer.update_extra_state()
     losses, step_ms, sync_free, ms = timed_steps(trainer, data, SHORT_STEPS, "train_aux")
     first, last = ({k: float(v) for k, v in m.items()
-                    if k not in ("loss", "mean_count", "notfinite", "K")} for m in (ms[0], ms[-1]))
+                    if k not in ("loss", "mean_count", "notfinite", "K", "index")}
+                   for m in (ms[0], ms[-1]))
     missing = {"backsdf", "cauchy", "eikonal"} - set(last)
     if missing or not all(np.isfinite(v) for v in [*first.values(), *last.values()]):
         raise AssertionError(f"train_aux: terms {last}; missing {sorted(missing)}")
@@ -1183,8 +1231,296 @@ def train_stack(libs):
           K=ms[-1]["K"], ms_per_step_after_3=float(np.mean(step_ms[3:])),
           sync_free_steps=sync_free, notfinite=int(trainer.notfinite),
           scatter_launches=launches, terms=repr(sorted(k for k in ms[-1] if k not in (
-              "loss", "mean_count", "notfinite", "K", "renv_open"))), decode_s=decode_s)
+              "loss", "mean_count", "notfinite", "K", "index", "renv_open"))), decode_s=decode_s)
     return launches
+
+
+def _sphere_parity_step(device: str, cp_dtype: str):
+    """One sphere-mode step of neural_renderer_cp.ini cut small (CP encoder
+    in ``cp_dtype``, material, 2 env nets, the sdf, back-face and eikonal
+    terms) on SPHERE_PARITY_RAYS probe rays, some with shell samples outside
+    the bound: loss, image and gradients as f64 CPU tensors.  The SDF is
+    first fitted to the sphere on the CPU (``render/sphere_probe.py``: where
+    the normals are well-conditioned)."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.models.network import NeRFNetwork
+    from envidr_tpu_torch.render.sphere_probe import PROBE_MATERIAL, fit_sphere_sdf, probe_rays
+    from envidr_tpu_torch.train.schedules import resolve
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(SPHERE_INI, **SPHERE_PARITY_CUT)
+    cfg = network_config(opt)
+    net = NeRFNetwork(cfg, generator=torch.Generator().manual_seed(0))
+    material = torch.from_numpy(PROBE_MATERIAL)
+    fit_sphere_sdf(net, 3)
+    net.cp_spec = dataclasses.replace(net.cp_spec, compute_dtype=cp_dtype)
+    n = SPHERE_PARITY_RAYS
+    o, d = probe_rays(n, 3, inside=False, cp_scales=net.cp_spec.scales)
+    rng = np.random.default_rng(3)
+    pix = rng.uniform(0, 1, (n, 4)).astype(np.float32)
+    pix[:, 3] = (rng.uniform(size=n) > 0.4).astype(np.float32)
+    bg = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    gt = pix[:, :3] * pix[:, 3:] + bg * (1.0 - pix[:, 3:])
+    tr = Trainer(opt, cfg, device=device, net=net)
+    args = [torch.from_numpy(a).to(device) for a in (o, d, gt, bg, pix[:, 3].copy())]
+    loss, out, terms = tr.forward_loss(*args, K=0, sched=resolve(opt, SPHERE_EPOCH, 0),
+                                       material=material.to(device),
+                                       env_index=torch.tensor(1, device=device))
+    loss.backward()
+    if set(terms) != {"color", "backsdf", "eikonal", "sdf"}:
+        raise AssertionError(f"sphere_parity: the step's terms are {sorted(terms)}")
+    return {"loss": loss.detach().double().cpu().reshape(1),
+            "image": out["image"].detach().double().cpu(),
+            **{n: p.grad.detach().double().cpu() for n, p in tr.net.named_parameters()}}
+
+
+def check_sphere_parity():
+    """The sphere step on the card against the CPU, per tensor (max |a - b| /
+    max |b|): the CP encoder in f32 under PARITY_RTOL, in bf16 under
+    CP_BF16_RTOL."""
+    result = {}
+    for cp_dtype, tol in (("float32", PARITY_RTOL), ("bfloat16", CP_BF16_RTOL)):
+        cpu = _sphere_parity_step("cpu", cp_dtype)
+        card = _sphere_parity_step("cuda", cp_dtype)
+        rel = {n: float((card[n] - cpu[n]).abs().max()) / max(float(cpu[n].abs().max()), 1e-30)
+               for n in cpu}
+        phase("sphere_parity", f"card_vs_cpu_{cp_dtype}", json.dumps(rel))
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= tol:
+            raise AssertionError(f"sphere step ({cp_dtype} encoder): card and CPU disagree on "
+                                 f"{worst}: {rel[worst]} > {tol}")
+        result.update({f"{cp_dtype}_max_rel_err": rel[worst], f"{cp_dtype}_worst": worst,
+                       f"{cp_dtype}_tolerance": tol})
+    return result
+
+
+def _sphere_widths(opt, cfg) -> dict:
+    spec = cfg.cp_spec if cfg.encoding_pos == "cp" else cfg.hash_spec
+    return dict(encoding=cfg.encoding_pos, levels=spec.num_levels,
+                rank=cfg.cp_rank if cfg.encoding_pos == "cp" else None,
+                log2_table=None if cfg.encoding_pos == "cp" else cfg.log2_hashmap_size,
+                sdf=[cfg.sdf_in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) + [cfg.sdf_out_dim],
+                color=[cfg.color_in_dim] + [cfg.hidden_dim_color] * (cfg.num_layers_color - 1)
+                + [3], diffuse_layers=cfg.num_layers_diffuse, env_nets=cfg.num_env_nets,
+                env=[cfg.refdir_enc_dim] + [cfg.hidden_dim_env] * (cfg.num_layers_env - 1)
+                + [cfg.env_feat_dim], rays=opt.num_rays, samples=12)
+
+
+SPHERE_WIDTHS = dict(encoding="cp", levels=16, rank=32, log2_table=None, sdf=[37, 64, 64, 14],
+                     color=[28, 64, 64, 3], diffuse_layers=2, env_nets=11,
+                     env=[38, 160, 160, 160, 12], rays=16384, samples=12)
+
+
+def generate_sphere_sets():
+    """The env-sphere train split (SPHERE_TRAIN_VIEWS views) and
+    SPHERE_RENDER_VIEWS val views at 400x400, generated on the card, and the
+    seconds."""
+    import torch
+    from envidr_tpu_torch.data.env_dataset import PrefilteredBank, generate_env_sphere
+    from envidr_tpu_torch.render.pbr import make_env_bank
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bank = PrefilteredBank(make_env_bank(11), "cuda")
+    train = generate_env_sphere("train", SPHERE_TRAIN_VIEWS, prefiltered=bank)
+    val = generate_env_sphere("val", SPHERE_RENDER_VIEWS, prefiltered=bank)
+    return train, val, time.perf_counter() - t
+
+
+def train_sphere(train, gen_s, libs):
+    """neural_renderer_cp.ini at its published width on the generated set: 2
+    steps of the diffuse term alone (epoch 1), then 20 from epoch 5, all under
+    sync debug mode "error"; every env net a step chose must move."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import card_options, network_config
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = card_options(SPHERE_INI)
+    cfg = network_config(opt)
+    assert_widths("neural_renderer_cp.ini", _sphere_widths(opt, cfg), SPHERE_WIDTHS)
+    trainer = Trainer(opt, cfg)
+    for lib in libs.values():                        # the sphere path starts here
+        lib.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    color = [p.detach().clone() for p in trainer.net.color_net.parameters()]
+    _, diffuse_ms, diffuse_free, _ = timed_steps(trainer, train, 2, "train_sphere diffuse")
+    if not trainer._sched.diffuse_only or not all(
+            torch.equal(a, b) for a, b in zip(color, trainer.net.color_net.parameters())):
+        raise AssertionError("train_sphere: the diffuse-only steps moved the colour net")
+    trainer.epoch, trainer._order = SPHERE_EPOCH - 1, []
+    env = [layer.weight.detach().clone() for layer in trainer.net.env_nets]
+    losses, step_ms, sync_free, ms = timed_steps(trainer, train, TRAIN_STEPS, "train_sphere")
+    launches = _launches(libs)                       # and ends here
+    chosen = sorted({int(train.env_index[m["index"]]) for m in ms})
+    moved = [e for e in range(cfg.num_env_nets)
+             if any(not torch.equal(a[e], b.weight[e]) for a, b in zip(env, trainer.net.env_nets))]
+    if trainer._sched.diffuse_only or not set(chosen) <= set(moved) or sync_free != TRAIN_STEPS:
+        raise AssertionError(f"train_sphere: env nets chosen {chosen}, moved {moved}, "
+                             f"sync-free steps {sync_free}")
+    ms_per_step = float(np.mean(step_ms[3:]))
+    phase("train_sphere", config="neural_renderer_cp.ini", widths=repr(_sphere_widths(opt, cfg)),
+          train_views=len(train), size=f"{train.H}x{train.W}", generate_s=gen_s,
+          diffuse_only_steps=2, diffuse_only_ms=repr([round(v, 1) for v in diffuse_ms]),
+          steps=TRAIN_STEPS, epoch=trainer.epoch, loss_1=losses[0], loss_20=losses[-1],
+          terms=repr(sorted(k for k in ms[-1] if k not in ("loss", "notfinite", "K", "index"))),
+          notfinite=int(trainer.notfinite), sync_free_steps=sync_free + diffuse_free,
+          ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
+          samples_per_step=opt.num_rays * 12, first_step_ms=step_ms[0],
+          env_nets_chosen=repr(chosen), env_nets_moved=repr(moved),
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+
+
+def train_sphere_hash(train, libs):
+    """neural_renderer_synth.ini as shipped (hashgrid_diff, a 2^19 table) at
+    full width: 5 steps from epoch 5."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import card_options, network_config
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = card_options(SPHERE_HASH_INI)
+    cfg = network_config(opt)
+    assert_widths("neural_renderer_synth.ini", _sphere_widths(opt, cfg), dict(
+        SPHERE_WIDTHS, encoding="hashgrid_diff", rank=None, log2_table=19))
+    trainer = Trainer(opt, cfg)
+    trainer.epoch = SPHERE_EPOCH - 1
+    for lib in libs.values():                        # the hash sphere path starts here
+        lib.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, sync_free, _ = timed_steps(trainer, train, SPHERE_HASH_STEPS,
+                                                "train_sphere_hash")
+    launches = _launches(libs)                       # and ends here
+    phase("train_sphere_hash", config="neural_renderer_synth.ini",
+          widths=repr(_sphere_widths(opt, cfg)), indexing=cfg.hash_spec.indexing,
+          steps=SPHERE_HASH_STEPS, loss_1=losses[0], loss_last=losses[-1],
+          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          ms_per_step_after_1=float(np.mean(step_ms[1:])), first_step_ms=step_ms[0],
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+
+
+def _sphere_view_psnrs(trainer, val, with_r_image=False):
+    """(PSNR of each view as the trainer's evaluate reads it, the renders,
+    the seconds of each render)."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.train.metrics import psnr
+    from envidr_tpu_torch.train.trainer import eval_pair
+
+    psnrs, images, secs = [], [], []
+    for i in range(SPHERE_RENDER_VIEWS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = trainer.render_view(val, i, with_r_image=with_r_image)
+        secs.append(time.perf_counter() - t)
+        img = res["image"]
+        if img.shape != (val.H, val.W, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"view {i}: shape {img.shape}, finite {np.isfinite(img).all()}")
+        psnrs.append(psnr(*eval_pair(res, val, i, trainer.opt)))
+        images.append(eval_pair(res, val, i, trainer.opt)[0])
+    return psnrs, images, secs
+
+
+def render_pretrain(val, libs):
+    """assets/env_sphere_pretrain_best.ckpt (EMA) on SPHERE_RENDER_VIEWS
+    generated val views at 400x400 with their materials and env indices."""
+    import numpy as np
+    from envidr_tpu_torch.config import card_options, network_config
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = card_options(SPHERE_INI)
+    trainer = Trainer(opt, network_config(opt))
+    trainer.load_checkpoint(PRETRAIN_CKPT)
+    for lib in libs.values():
+        lib.launches = 0
+    psnrs, _, secs = _sphere_view_psnrs(trainer, val)
+    launches = _launches(libs)
+    if not psnrs[0] > PRETRAIN_PSNR_MIN_DB:
+        raise AssertionError(f"render_pretrain: view 0 reads {psnrs[0]} dB <= "
+                             f"{PRETRAIN_PSNR_MIN_DB}")
+    phase("render_pretrain", checkpoint=os.path.relpath(PRETRAIN_CKPT, ROOT),
+          epoch=trainer.epoch, size=f"{val.H}x{val.W}", psnr_db_view0=psnrs[0],
+          min_psnr_db=PRETRAIN_PSNR_MIN_DB, psnr_db=repr(psnrs),
+          mean_psnr_db=float(np.mean(psnrs)), env_index=repr(val.env_index.tolist()),
+          seconds=repr([round(v, 3) for v in secs]), launches=launches)
+
+
+def train_renv(libs):
+    """neural_renderer_renv.ini with RENV_OVERRIDES on the decoded
+    data/env_sphere_renv (mirror images included): 10 steps; every frozen
+    module bit-equal in the net and the EMA net, renv_net moved."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import card_options, network_config
+    from envidr_tpu_torch.data.env_dataset import EnvSphereDataset
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    t = time.perf_counter()
+    data = EnvSphereDataset(RENV_DATA, "train", scale=0.8, with_renv=True)
+    decode_s = time.perf_counter() - t
+    opt = card_options(RENV_INI, **RENV_OVERRIDES)
+    cfg = network_config(opt)
+    assert_widths("neural_renderer_renv.ini", _sphere_widths(opt, cfg), SPHERE_WIDTHS)
+    trainer = Trainer(opt, cfg)
+    frozen = sorted(trainer.optimizer.frozen_names)
+    if frozen != sorted(n for n, _ in trainer.net.named_children() if n != "renv_net"):
+        raise AssertionError(f"train_renv: frozen {frozen}")
+    keep = {(which, name): [p.detach().clone() for p in getattr(net, name).parameters()]
+            for which, net in (("net", trainer.net), ("EMA net", trainer.ema_net))
+            for name in frozen + ["renv_net"]}
+    for lib in libs.values():                        # the renv path starts here
+        lib.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, sync_free, _ = timed_steps(trainer, data, SHORT_STEPS, "train_renv")
+    launches = _launches(libs)                       # and ends here
+    for (which, name), before in keep.items():
+        net = trainer.net if which == "net" else trainer.ema_net
+        same = all(torch.equal(a, b) for a, b in zip(before, getattr(net, name).parameters()))
+        if same != (name != "renv_net"):
+            raise AssertionError(f"train_renv: {name} of the {which} "
+                                 f"{'did not move' if same else 'moved'}")
+    phase("train_renv", config="neural_renderer_renv.ini", overrides=repr(RENV_OVERRIDES),
+          train_views=len(data), size=f"{data.H}x{data.W}", decode_s=decode_s,
+          steps=SHORT_STEPS, loss_1=losses[0], loss_last=losses[-1],
+          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          ms_per_step_after_3=float(np.mean(step_ms[3:])), first_step_ms=step_ms[0],
+          frozen=repr(frozen), frozen_bit_equal=True, renv_moved=True,
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+
+
+def render_renv(libs):
+    """assets/renv_pretrain_best.ckpt on the renv set's val views at 400x400,
+    with their mirror images (the train step's render_sphere input) and
+    without them (the eval path): both PSNRs and the largest change, which
+    must not be 0."""
+    import numpy as np
+    from envidr_tpu_torch.config import card_options, network_config
+    from envidr_tpu_torch.data.env_dataset import EnvSphereDataset
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = card_options(RENV_INI, **{**RENV_OVERRIDES, "color_mlp_path": ""})
+    trainer = Trainer(opt, network_config(opt))
+    trainer.load_checkpoint(RENV_CKPT)
+    val = EnvSphereDataset(RENV_DATA, "val", scale=0.8, with_renv=True)
+    for lib in libs.values():
+        lib.launches = 0
+    with_r, img_r, secs = _sphere_view_psnrs(trainer, val, with_r_image=True)
+    without, img_0, _ = _sphere_view_psnrs(trainer, val)
+    launches = _launches(libs)
+    change = max(float(np.abs(a - b).max()) for a, b in zip(img_r, img_0))
+    if not change > 0.0:
+        raise AssertionError("render_renv: the mirror images changed no pixel")
+    phase("render_renv", checkpoint=os.path.relpath(RENV_CKPT, ROOT), epoch=trainer.epoch,
+          size=f"{val.H}x{val.W}", views=SPHERE_RENDER_VIEWS,
+          psnr_db_with_r_images=repr(with_r), psnr_db_without=repr(without),
+          mean_psnr_db_with_r_images=float(np.mean(with_r)),
+          mean_psnr_db_without=float(np.mean(without)), max_change=change,
+          seconds=repr([round(v, 3) for v in secs]), launches=launches)
 
 
 def main() -> int:
@@ -1313,6 +1649,15 @@ def main() -> int:
             raise AssertionError(f"row {row['row']} ({row['shape']}): the {bench} rows "
                                  f"{[r['name'] for r in matched]} launched no {row['name']}")
     phase("bench", launches_by_row=repr(" ".join(f"{r['row']}:{r['launches']}" for r in rows)))
+
+    phase("sphere_parity", **check_sphere_parity())
+    sphere_train, sphere_val, gen_s = generate_sphere_sets()
+    train_sphere(sphere_train, gen_s, libs)
+    train_sphere_hash(sphere_train, libs)
+    del sphere_train
+    render_pretrain(sphere_val, libs)
+    train_renv(libs)
+    render_renv(libs)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

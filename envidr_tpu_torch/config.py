@@ -416,10 +416,12 @@ HASH_KERNEL_PATH = dict(hash_scatter_impl="mixed", hash_custom_grad="on")
 
 
 def card_options(config_path: str, **overrides) -> Options:
-    """:func:`load_options` as the card runs a config: a hash-grid config
-    takes :data:`HASH_KERNEL_PATH` (the CP configs reach no kernel)."""
+    """:func:`load_options` as the card runs a config: a scene-mode hash-grid
+    config takes :data:`HASH_KERNEL_PATH` (the CP configs reach no kernel);
+    a sphere-mode config runs as it stands (its ``hashgrid_diff`` is the
+    ``hash`` indexing, differentiated by autograd: no kernel either)."""
     opt = load_options(config_path, **overrides)
-    if opt.encoding_pos in ("rolled_tiled", "hashgrid", "hashgrid_diff"):
+    if opt.encoding_pos in ("rolled_tiled", "hashgrid", "hashgrid_diff") and not opt.env_sph_mode:
         opt = load_options(config_path, **{**HASH_KERNEL_PATH, **overrides})
     return opt
 

@@ -1,7 +1,8 @@
 """Camera poses, ray generation and analytic geometry helpers.
 
-Counterpart of ``envidr_tpu/geometry/rays.py`` (the functions the scene
-training path reaches).  Random draws take an explicit ``torch.Generator``.
+Counterpart of ``envidr_tpu/geometry/rays.py`` (the functions the scene and
+sphere training paths reach, and the spherical camera pose of the env-sphere
+set).  Random draws take an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -10,6 +11,29 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+
+def _trans_t(t):
+    return np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, t], [0, 0, 0, 1]], dtype=np.float64)
+
+
+def _rot_phi(phi):
+    c, s = np.cos(phi), np.sin(phi)
+    return np.array([[1, 0, 0, 0], [0, c, -s, 0], [0, s, c, 0], [0, 0, 0, 1]], dtype=np.float64)
+
+
+def _rot_theta(th):
+    c, s = np.cos(th), np.sin(th)
+    return np.array([[c, 0, -s, 0], [0, 1, 0, 0], [s, 0, c, 0], [0, 0, 0, 1]], dtype=np.float64)
+
+
+def pose_spherical(theta_deg: float, phi_deg: float, radius: float) -> np.ndarray:
+    """Blender-style spherical camera pose (``sph_loader.py:67-76``), f64."""
+    c2w = _trans_t(radius)
+    c2w = _rot_phi(phi_deg / 180.0 * np.pi) @ c2w
+    c2w = _rot_theta(theta_deg / 180.0 * np.pi) @ c2w
+    return np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+                    dtype=np.float64) @ c2w
 
 
 def nerf_matrix_to_ngp(pose: np.ndarray, scale: float = 1.0, offset=(0, 0, 0)) -> np.ndarray:
@@ -97,6 +121,15 @@ def error_map_draws_to_rays(poses: torch.Tensor, intrinsics, H: int, W: int,
 def reflect_dir(w_o: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
     """u = 2 (n.v) n - v; w_o points from the surface to the camera."""
     return 2.0 * (w_o * normals).sum(dim=-1, keepdim=True) * normals - w_o
+
+
+def sphere_intersections(rays_o: torch.Tensor, rays_d: torch.Tensor, r: float = 1.0):
+    """Ray-sphere hit (``sph_ray.py:19-32``): near [N, 1], far [N, 1] and
+    mask [N] (the discriminant above -1e-4)."""
+    ray_cam_dot = (rays_d * rays_o).sum(dim=-1, keepdim=True)
+    nabla = ray_cam_dot ** 2 - ((rays_o * rays_o).sum(dim=-1, keepdim=True) - r ** 2)
+    nabla_sqrt = torch.sqrt(nabla.clamp_min(0.0))
+    return -ray_cam_dot - nabla_sqrt, -ray_cam_dot + nabla_sqrt, (nabla >= -1e-4)[..., 0]
 
 
 def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb: torch.Tensor,

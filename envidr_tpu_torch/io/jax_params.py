@@ -5,6 +5,9 @@ each leaf); nothing JAX-specific is read or unpickled.  A linear layer is
 ``{'w': [in, out], 'b': [out]}`` there and ``nn.Linear`` ([out, in]) here;
 the encoder and the density's scalar are loose parameters named by their
 pytree paths (``encoder.axes.0.2`` is ``params["encoder"]["axes"][0][2]``).
+The stack of env nets of sphere mode (``env_nets``) is a list of layers
+with a leading env axis in both: ``{'w': [E, in, out], 'b': [E, out]}`` there,
+:class:`~envidr_tpu_torch.models.mlp.StackedLinear` ([E, out, in]) here.
 
 :func:`merge_mlp` is the JAX trainer's ``_merge_tolerant`` for one MLP, and
 :func:`merge_leaves` for a module of loose leaves: a checkpoint tensor
@@ -19,8 +22,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from envidr_tpu_torch.models.mlp import StackedLinear
+
 # the MLP modules of the network, in the JAX pytree's naming
-MLP_MODULES = ("sdf_net", "diffuse_net", "color_net", "env_net", "renv_net")
+MLP_MODULES = ("sdf_net", "diffuse_net", "color_net", "env_net", "env_nets", "renv_net")
+
+
+def _t(w) -> np.ndarray:
+    """A JAX ``w`` ([..., in, out]) in the port's layout ([..., out, in])."""
+    return np.swapaxes(np.asarray(w), -1, -2)
 
 
 def _copy(dst: torch.Tensor, src, name: str):
@@ -34,7 +44,7 @@ def _load_mlp(layers: nn.ModuleList, tree, name: str):
     if len(tree) != len(layers):
         raise ValueError(f"{name}: {len(tree)} layers, expected {len(layers)}")
     for i, (layer, p) in enumerate(zip(layers, tree)):
-        _copy(layer.weight, np.asarray(p["w"]).T, f"{name}[{i}].w")
+        _copy(layer.weight, _t(p["w"]), f"{name}[{i}].w")
         if layer.bias is not None:
             _copy(layer.bias, p["b"], f"{name}[{i}].b")
         elif "b" in p:
@@ -85,7 +95,7 @@ def module_arrays(module: nn.Module, tree) -> list:
     if isinstance(module, nn.ModuleList):
         out = []
         for layer, p in zip(module, tree):
-            out.append(np.asarray(p["w"]).T)
+            out.append(_t(p["w"]))
             if layer.bias is not None:
                 out.append(np.asarray(p["b"]))
         return out
@@ -100,7 +110,7 @@ def module_tree(module: nn.Module, tensors) -> Any:
     if isinstance(module, nn.ModuleList):
         out, it = [], iter(arrays)
         for layer in module:
-            p = {"w": np.ascontiguousarray(next(it).T)}
+            p = {"w": np.ascontiguousarray(_t(next(it)))}
             if layer.bias is not None:
                 p["b"] = next(it)
             out.append(p)
@@ -126,16 +136,22 @@ def _lists(node):
 
 
 def mlp_from_tree(tree) -> nn.ModuleList:
-    """An MLP built from a JAX-layout list of ``{"w": [in, out], "b": [out]}``."""
+    """An MLP built from a JAX-layout list of ``{"w": [in, out], "b": [out]}``
+    (or a stack of them, ``w`` [E, in, out]: a list of ``StackedLinear``)."""
     layers = nn.ModuleList()
     for p in tree:
         w = np.asarray(p["w"], np.float32)
-        layer = nn.Linear(w.shape[0], w.shape[1], bias="b" in p)
-        with torch.no_grad():
-            layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
-            if "b" in p:
-                layer.bias.copy_(torch.from_numpy(np.asarray(p["b"], np.float32)))
-        layers.append(layer)
+        b = np.asarray(p["b"], np.float32) if "b" in p else None
+        linears = []
+        for k in range(w.shape[0] if w.ndim == 3 else 1):
+            wk, bk = (w[k], None if b is None else b[k]) if w.ndim == 3 else (w, b)
+            layer = nn.Linear(wk.shape[0], wk.shape[1], bias=bk is not None)
+            with torch.no_grad():
+                layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(wk.T)))
+                if bk is not None:
+                    layer.bias.copy_(torch.from_numpy(bk))
+            linears.append(layer)
+        layers.append(StackedLinear(linears) if w.ndim == 3 else linears[0])
     return layers
 
 
@@ -153,7 +169,7 @@ def merge_mlp(layers: nn.ModuleList, tree) -> nn.ModuleList:
     pairs = []
     if len(tree) == len(layers) and all(set(p) == keys(l) for l, p in zip(layers, tree)):
         for layer, p in zip(layers, tree):
-            pairs.append((layer.weight, np.asarray(p["w"], np.float32).T))
+            pairs.append((layer.weight, _t(np.asarray(p["w"], np.float32))))
             if layer.bias is not None:
                 pairs.append((layer.bias, np.asarray(p["b"], np.float32)))
     if not pairs or any(dst.dim() != src.ndim for dst, src in pairs):

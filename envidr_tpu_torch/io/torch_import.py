@@ -7,17 +7,21 @@ arrays, as in the JAX pytree, so that one merge path
 alike.  Files are read with ``weights_only=True``: a ``.pth`` cannot run
 code when it is loaded.
 
-Formats: full model state dicts (``{"model": {"sdf_net.0.weight": ...}}``),
-the per-environment relighting nets ``env_net_{i}.pth`` (keys
+Formats: full model state dicts (``{"model": {"sdf_net.0.weight": ...}}``,
+the stack of sphere mode as ``env_nets.{e}.{layer}.weight``), the
+per-environment relighting nets ``env_net_{i}.pth`` (keys
 ``env_net{layer}.weight``, no dot before the index) and Sequential nets
 (``0.weight``, ``2.weight``, ...).  Weight-norm layers are collapsed to plain
-weights, ``w = g * v / ||v||_row``.
+weights, ``w = g * v / ||v||_row``.  The reference's pretrained rendering
+MLPs and env nets converted to numpy (``assets/rendering_mlps.npz`` and
+``assets/env_nets.npz``, the layout of ``tools/convert_reference_ckpts.py``)
+are read by :func:`load_npz_mlps` and :func:`load_npz_env_nets`.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -74,12 +78,52 @@ def network_params_from_state(sd: Dict[str, np.ndarray]) -> dict:
     for leaf in ("beta", "variance"):
         if f"sdf_density.{leaf}" in sd:
             params["sdf_density"] = {leaf: sd[f"sdf_density.{leaf}"]}
-    for name in ("sdf_net", "diffuse_net", "color_net", "env_net"):
+    for name in ("sdf_net", "diffuse_net", "color_net", "renv_net", "env_net"):
         try:
             params[name] = mlp_from_state(sd, name)
         except KeyError:
             pass
+    # the stack of sphere mode: env_nets.{e}.{layer}.weight
+    env_ids = sorted({int(m.group(1)) for k in sd for m in [re.match(r"env_nets\.(\d+)\.", k)] if m})
+    if env_ids:
+        params["env_nets"] = stack_trees([
+            mlp_from_state({k[len(f"env_nets.{e}."):]: v for k, v in sd.items()
+                            if k.startswith(f"env_nets.{e}.")}) for e in env_ids])
     return params
+
+
+def stack_trees(mlps: Sequence[List[dict]]) -> List[dict]:
+    """MLPs of one shape as one, each leaf stacked on a leading axis (the
+    JAX package's ``env_nets`` pytree)."""
+    return [{k: np.stack([m[i][k] for m in mlps]) for k in mlps[0][i]}
+            for i in range(len(mlps[0]))]
+
+
+def _npz_mlp(z, prefix: str) -> List[dict]:
+    layers, i = [], 0
+    while f"{prefix}.{i}.w" in z:
+        layer = {"w": np.asarray(z[f"{prefix}.{i}.w"], np.float32)}
+        if f"{prefix}.{i}.b" in z:
+            layer["b"] = np.asarray(z[f"{prefix}.{i}.b"], np.float32)
+        layers.append(layer)
+        i += 1
+    if not layers:
+        raise KeyError(f"no layers {prefix}.* in the file")
+    return layers
+
+
+def load_npz_mlps(path: str, names=("diffuse_net", "renv_net", "color_net")) -> dict:
+    """The MLPs ``names`` of an ``.npz`` written as ``{name}.{layer}.w`` /
+    ``.b`` in the JAX layout (``assets/rendering_mlps.npz``)."""
+    with np.load(path) as z:
+        return {name: _npz_mlp(z, name) for name in names}
+
+
+def load_npz_env_nets(path: str, ids: Sequence[int]) -> List[dict]:
+    """The env nets ``ids`` of ``assets/env_nets.npz`` (``env_{i}.{layer}.w``)
+    as the stacked pytree of sphere mode."""
+    with np.load(path) as z:
+        return stack_trees([_npz_mlp(z, f"env_{i}") for i in ids])
 
 
 def load_env_net(path: str) -> List[dict]:

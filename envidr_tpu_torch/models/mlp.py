@@ -1,7 +1,10 @@
 """Tiny-MLP building blocks (counterpart of ``envidr_tpu/models/mlp.py``).
 
 A layer is an ``nn.Linear``; its ``weight`` is the transpose of the JAX
-package's ``w`` ([out, in] against [in, out]).  Initialisation follows the
+package's ``w`` ([out, in] against [in, out]).  A stack of E MLPs of one
+shape (the env nets of sphere mode, a stacked pytree with a leading env
+axis there) is a list of :class:`StackedLinear`, whose ``weight`` is
+[E, out, in].  Initialisation follows the
 same laws (xavier-uniform with ReLU gain on hidden layers, torch's default
 U(+-1/sqrt(in)), or kaiming-normal), drawn from an explicit generator.
 """
@@ -47,7 +50,7 @@ def init_mlp(dims: Sequence[int], *, bias: bool = True,
         for i in range(n))
 
 
-def apply_mlp(layers: nn.ModuleList, x: torch.Tensor,
+def apply_mlp(layers: Sequence[Callable], x: torch.Tensor,
               act: Callable = F.relu) -> torch.Tensor:
     n = len(layers)
     for i, layer in enumerate(layers):
@@ -55,6 +58,38 @@ def apply_mlp(layers: nn.ModuleList, x: torch.Tensor,
         if i < n - 1:
             x = act(x)
     return x
+
+
+class StackedLinear(nn.Module):
+    """E linear layers of one shape: ``weight`` [E, out, in], ``bias`` [E, out]."""
+
+    def __init__(self, layers: Sequence[nn.Linear]):
+        super().__init__()
+        self.weight = nn.Parameter(torch.stack([l.weight.detach() for l in layers]))
+        self.bias = (nn.Parameter(torch.stack([l.bias.detach() for l in layers]))
+                     if layers[0].bias is not None else None)
+
+    def pick(self, index) -> nn.Module:
+        """Layer ``index`` (an int, or a 0-dim integer tensor read on its
+        device, without a copy to the host) as a callable."""
+        if isinstance(index, int):
+            w, b = self.weight[index], None if self.bias is None else self.bias[index]
+        else:
+            i = index.reshape(1).long()
+            w = self.weight.index_select(0, i)[0]
+            b = None if self.bias is None else self.bias.index_select(0, i)[0]
+        return lambda x: F.linear(x, w, b)
+
+
+def stack_mlps(mlps: Sequence[nn.ModuleList]) -> nn.ModuleList:
+    """E MLPs of one shape as one list of :class:`StackedLinear`."""
+    return nn.ModuleList(StackedLinear(layers) for layers in zip(*mlps))
+
+
+def apply_stacked_mlp(layers: nn.ModuleList, index, x: torch.Tensor,
+                      act: Callable = F.relu) -> torch.Tensor:
+    """MLP ``index`` of a stack made by :func:`stack_mlps`."""
+    return apply_mlp([layer.pick(index) for layer in layers], x, act)
 
 
 def softplus_beta(x: torch.Tensor, beta: float = 100.0) -> torch.Tensor:

@@ -4,35 +4,47 @@ Counterpart of ``envidr_tpu/models/network.py``.  The JAX package keeps a
 parameter pytree and pure functions; here :class:`NeRFNetwork` is an
 ``nn.Module`` whose submodule names are the pytree's top-level keys
 (``encoder``, ``sdf_density``, ``sdf_net``, ``diffuse_net``, ``color_net``,
-``env_net``); its constructor is ``init_network_params``, and its methods
+``env_net`` or ``env_nets``, ``renv_net``); its constructor is
+``init_network_params``, and its methods
 carry the JAX functions' names
 (``forward_geometry``, ``geometry_with_normals``, ``sdf_to_sigma``,
 ``forward_color``, ``get_color_mlp_extra_params``).
 
 Ported so far: the hash encoder (``encoding_pos`` ``rolled_tiled``, and
 ``hashgrid`` / ``hashgrid_diff``, which select ``hash`` indexing with linear /
-smoothstep interpolation), the CP encoder (``cp``), the Laplace density and
-the NeuS alpha, a density field (``use_sdf=False``: a ``trunc_exp`` sigma
-head, normals from -grad sigma), the frequency/SH/IDE direction encoders, the
-diffuse, specular and environment MLPs, and the interreflection branch
-(``use_renv``: ``renv_net`` reads the colour and visibility of a reflected
-ray, gated by roughness, and ``learn_indir_blend`` blends it in).  Numerical
-normals, the background net, sphere mode, ``train_renv`` and
+smoothstep interpolation), the CP encoder (``cp``), the frequency encoding of
+the position (``frequency``: no encoder parameters), material conditioning
+(roughness, metallic and colour appended to the SDF net's input, in that
+order), the Laplace density and the NeuS alpha, a density field
+(``use_sdf=False``: a ``trunc_exp`` sigma head, normals from -grad sigma),
+the frequency/SH/IDE direction encoders, the diffuse, specular and
+environment MLPs, the stack of ``num_env_nets`` env MLPs of sphere mode
+(``env_sph_mode``: ``env_nets``, one chosen per call by ``env_index``), and
+the interreflection branch (``use_renv``: ``renv_net`` reads the colour and
+visibility of a reflected ray, gated by roughness, and ``learn_indir_blend``
+blends it in; under ``train_renv`` it replaces the specular colour outright
+where ``r_images`` are given).  :meth:`NeRFNetwork.diffuse_only` renders the
+diffuse term alone (no roughness, no specular), as a step before
+``color_net_start_iter`` does.  Numerical normals, the background net and
 ``split_diffuse_env`` raise ``NotImplementedError`` until their slices land.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from envidr_tpu_torch.geometry.rays import reflect_dir
-from envidr_tpu_torch.models.mlp import apply_mlp, feat_act, init_linear, init_mlp
+from envidr_tpu_torch.models.mlp import (
+    apply_mlp, apply_stacked_mlp, feat_act, init_linear, init_mlp, stack_mlps,
+)
 from envidr_tpu_torch.ops import density as density_ops
 from envidr_tpu_torch.ops.cp import CPSpec, cp_encode_from_world, init_cp_params
 from envidr_tpu_torch.ops.freq import freq_encode, freq_output_dim
@@ -246,12 +258,9 @@ def _unported(cfg: NetworkConfig):
     """Names of the options of ``cfg`` this slice does not port yet."""
     checks = {
         f"encoding_pos={cfg.encoding_pos!r}": cfg.encoding_pos not in (
-            "rolled_tiled", "hashgrid", "hashgrid_diff", "cp"),
+            "rolled_tiled", "hashgrid", "hashgrid_diff", "cp", "frequency"),
         "numerical_normals": cfg.numerical_normals,
         "bg_radius > 0": cfg.bg_radius > 0,
-        "material conditioning (sphere mode)": cfg.material_dims > 0,
-        "env_sph_mode": cfg.env_sph_mode,
-        "train_renv": cfg.train_renv,
         "split_diffuse_env": cfg.split_diffuse_env,
         "skip_layers": bool(cfg.skip_layers),
         "geometric_init": cfg.geometric_init,
@@ -315,7 +324,7 @@ class NeRFNetwork(nn.Module):
         init = cfg.net_init or "torch_default"
         if cfg.encoding_pos == "cp":
             self.encoder = CPEncoder(self.cp_spec, generator)
-        else:
+        elif cfg.encoding_pos != "frequency":
             self.encoder = _Params(
                 embeddings=init_hash_embeddings(cfg.hash_spec, generator=generator))
         if cfg.use_sdf:             # a density field has no SDF-to-density scalar
@@ -342,10 +351,14 @@ class NeRFNetwork(nn.Module):
             with torch.no_grad():      # lower initial specular (network.py:333-334)
                 self.color_net[-1].bias -= math.log(3.0)
         if cfg.use_env_net:
-            self.env_net = init_mlp(
-                [cfg.refdir_enc_dim] + [cfg.hidden_dim_env] * (cfg.num_layers_env - 1)
-                + [cfg.env_feat_dim], bias=not cfg.env_wo_bias, init=init,
-                generator=generator)
+            def env_mlp():
+                return init_mlp([cfg.refdir_enc_dim] + [cfg.hidden_dim_env]
+                                * (cfg.num_layers_env - 1) + [cfg.env_feat_dim],
+                                bias=not cfg.env_wo_bias, init=init, generator=generator)
+            if cfg.env_sph_mode:      # a stacked pytree in JAX (network.py:325-328)
+                self.env_nets = stack_mlps([env_mlp() for _ in range(cfg.num_env_nets)])
+            else:
+                self.env_net = env_mlp()
             if cfg.use_renv:    # rgb + roughness -> env feature (network.py:304-310)
                 self.renv_net = init_mlp([4, 64, 64, 64, cfg.env_feat_dim],
                                          bias=not cfg.env_wo_bias, init=init,
@@ -355,6 +368,8 @@ class NeRFNetwork(nn.Module):
 
     def encode_position(self, xyz, level_mask=None, gate: Optional[EncoderGradGate] = None):
         cfg = self.cfg
+        if cfg.encoding_pos == "frequency":
+            return freq_encode(xyz, degree=cfg.multires)
         if cfg.encoding_pos == "cp":
             x = cp_encode_from_world(xyz, self.encoder.tables(), self.cp_spec, bound=cfg.bound)
         else:
@@ -365,12 +380,32 @@ class NeRFNetwork(nn.Module):
             x = x * torch.repeat_interleave(level_mask, cfg.level_dim)
         return x
 
+    def material_features(self, material, like: torch.Tensor) -> torch.Tensor:
+        """The material inputs of the SDF net, broadcast to ``like``'s
+        leading shape: roughness, metallic, colour (those the config takes).
+        ``material`` is a dict of host or device values, or a tensor [5]
+        (roughness, metallic, colour) on ``like``'s device."""
+        cfg = self.cfg
+        if isinstance(material, dict):
+            material = material_tensor(material, like.device)
+        m = material.to(like.dtype)
+        # slices, not an index list: a list would be copied to the device
+        parts = ([m[0:1]] if cfg.in_roughness else []) + ([m[1:2]] if cfg.in_metallic else []) \
+            + ([m[2:5]] if cfg.in_base_color else [])
+        m = torch.cat(parts)
+        return m.expand(like.shape[:-1] + m.shape)
+
     def forward_geometry(self, xyz, level_mask=None,
-                         gate: Optional[EncoderGradGate] = None) -> Dict[str, Any]:
+                         gate: Optional[EncoderGradGate] = None, *,
+                         material=None) -> Dict[str, Any]:
         """-> dict(sdf or, for a density field, sigma; geo_feat, roughness,
-        blend_weight)."""
+        blend_weight).  ``material`` conditions the SDF net in sphere mode."""
         cfg = self.cfg
         h = self.encode_position(xyz, level_mask, gate)
+        if cfg.material_dims > 0:
+            if material is None:
+                raise ValueError("sphere mode requires material conditioning")
+            h = torch.cat([h, self.material_features(material, h)], dim=-1)
         for l, layer in enumerate(self.sdf_net):
             h = layer(h)
             if l != cfg.num_layers - 1:
@@ -411,7 +446,8 @@ class NeRFNetwork(nn.Module):
         return density_ops.laplace_density(sdf, beta)
 
     def geometry_with_normals(self, xyz, level_mask=None, *, need_normals: bool = True,
-                              normal_anneal_ratio: float = 1.0, create_graph: bool = True):
+                              normal_anneal_ratio: float = 1.0, create_graph: bool = True,
+                              material=None):
         """forward_geometry + autodiff surface normals (of the SDF, or of
         -sigma for a density field).
 
@@ -420,13 +456,13 @@ class NeRFNetwork(nn.Module):
         render passes False.
         """
         if not need_normals:
-            return self.forward_geometry(xyz, level_mask), None, None
+            return self.forward_geometry(xyz, level_mask, material=material), None, None
         gate = EncoderGradGate()
         with torch.enable_grad():
             # positions that carry a gradient (the indirect pass's grad_ray
             # samples) keep it, through the normals too
             pts = xyz if xyz.requires_grad else xyz.detach().requires_grad_(True)
-            geo_out = self.forward_geometry(pts, level_mask, gate)
+            geo_out = self.forward_geometry(pts, level_mask, gate, material=material)
             gate.skip_table_grad = True
             try:
                 field = geo_out["sdf"] if self.cfg.use_sdf else geo_out["sigma"]
@@ -449,16 +485,35 @@ class NeRFNetwork(nn.Module):
 
     # --------------------------------------------------------------- color
 
-    def _env_feat(self, x):
-        return feat_act(apply_mlp(self.env_net, x), self.cfg.env_feat_act)
+    def _env_feat(self, x, env_index=0):
+        """The env MLP's feature of ``x``: in sphere mode the env net
+        ``env_index`` (an int or a 0-dim device tensor) of the stack."""
+        if self.cfg.env_sph_mode:
+            y = apply_stacked_mlp(self.env_nets, env_index, x)
+        else:
+            y = apply_mlp(self.env_net, x)
+        return feat_act(y, self.cfg.env_feat_act)
+
+    @contextlib.contextmanager
+    def diffuse_only(self, on: bool = True):
+        """While the block runs (with ``on``), the net renders the diffuse
+        term alone: no roughness head, no reflected direction, no specular
+        colour (``diffuse_only``, the JAX step's ``dataclasses.replace``)."""
+        cfg = self.cfg
+        if on:
+            self.cfg = dataclasses.replace(cfg, diffuse_only=True)
+        try:
+            yield
+        finally:
+            self.cfg = cfg
 
     def _color_head(self, h):
         y = apply_mlp(self.color_net, h)
         return torch.sigmoid(y) if self.cfg.color_act == "sigmoid" else density_ops.trunc_exp(y)
 
     def forward_color(self, geo_feat, dirs, normals_enc=None, w_r_enc=None,
-                      n_dot_w_o=None, *, n_env_enc=None, r_images=None, roughness=None,
-                      blend_weight=None):
+                      n_dot_w_o=None, *, env_index=0, n_env_enc=None, r_images=None,
+                      roughness=None, blend_weight=None):
         """Diffuse + specular color of each sample; returns (color, aux).
 
         ``r_images`` [..., 3 or 4] is the colour (and visibility) of each
@@ -467,14 +522,17 @@ class NeRFNetwork(nn.Module):
         ``renv_net``'s feature where the roughness is below
         ``indir_roughness_thresh`` (and, with a visibility channel, the
         reflected ray hit the scene: visibility > 0.9); ``aux`` then holds
-        ``renv_mask`` and ``blend``."""
+        ``renv_mask`` and ``blend``.  Under ``train_renv`` the specular
+        colour is the renv branch's alone wherever ``r_images`` are given
+        (network.py:588-592, 620-635); without them the env branch renders.
+        ``env_index`` chooses the env net in sphere mode."""
         cfg = self.cfg
         aux: Dict[str, Any] = {}
         c_diffuse = 0.0
         if cfg.use_diffuse:
             h = geo_feat
             if cfg.diffuse_with_env:
-                nenv = self._env_feat(n_env_enc)
+                nenv = self._env_feat(n_env_enc, env_index)
                 if cfg.diffuse_env_fusion == "concat":
                     h = torch.cat([h, nenv], dim=-1)
                 elif cfg.diffuse_env_fusion == "add":
@@ -501,13 +559,24 @@ class NeRFNetwork(nn.Module):
                 return self._color_head(torch.cat([x, n_dot_w_o], dim=-1)
                                         if cfg.use_n_dot_viewdir else x)
 
-            c_specular = head(None if w_r_enc is None else
-                              self._env_feat(w_r_enc) if cfg.use_env_net else w_r_enc)
-            if r_images is not None and cfg.use_renv:
-                c_specular = self._blend_renv(c_specular, head, r_images, roughness,
-                                              blend_weight, aux)
+            if cfg.train_renv and r_images is not None:
+                remap = torch.sqrt(torch.clamp(roughness / 0.75, min=0.0))
+                c_specular = head(self._renv_feat(r_images, remap))
+            else:
+                c_specular = head(None if w_r_enc is None else
+                                  self._env_feat(w_r_enc, env_index) if cfg.use_env_net
+                                  else w_r_enc)
+                if r_images is not None and cfg.use_renv:
+                    c_specular = self._blend_renv(c_specular, head, r_images, roughness,
+                                                  blend_weight, aux)
         aux["c_specular"] = c_specular
         return (c_diffuse + c_specular) * cfg.intensity_scale, aux
+
+    def _renv_feat(self, r_images, remap):
+        """``renv_net``'s feature of the reflected colour and the remapped
+        roughness."""
+        x = torch.cat([r_images[..., :3], remap], dim=-1)
+        return feat_act(apply_mlp(self.renv_net, x), self.cfg.env_feat_act)
 
     def _blend_renv(self, c_env, head, r_images, roughness, blend_weight, aux):
         """The renv branch of ``forward_color`` (network.py:604-643)."""
@@ -522,9 +591,7 @@ class NeRFNetwork(nn.Module):
             blend = 0.98 * blend_weight
         else:     # the reference's roughness sigmoid (network.py:631)
             blend = 0.95 * torch.sigmoid(80.0 * (remap - 0.18))
-        renv_feat = feat_act(apply_mlp(self.renv_net, torch.cat([r_images[..., :3], remap],
-                                                                dim=-1)), cfg.env_feat_act)
-        c_renv = head(renv_feat)
+        c_renv = head(self._renv_feat(r_images, remap))
         if cfg.indir_only:
             c_env = c_env * 0.0
         blended = c_env * blend + c_renv * (1.0 - blend)
@@ -556,3 +623,15 @@ class NeRFNetwork(nn.Module):
             n_env_enc = encode_dir(cfg.encoding_ref, cfg.multires_refdir, cfg.sh_degree,
                                    normals, cfg.diffuse_kappa_inv) * cfg.light_intensity_scale
         return normals_enc, w_r_enc, n_dot_w_o, n_env_enc
+
+
+def material_tensor(material: dict, device) -> torch.Tensor:
+    """A material dict (``roughness``, ``metallic``, ``color``: host or device
+    values) as float32 [5] on ``device``: roughness, metallic, colour."""
+    parts = [torch.as_tensor(material["roughness"], dtype=torch.float32, device=device).reshape(1),
+             torch.as_tensor(material["metallic"], dtype=torch.float32, device=device).reshape(1),
+             torch.as_tensor(np.asarray(material["color"], np.float32)[..., :3]
+                             if not torch.is_tensor(material["color"])
+                             else material["color"][..., :3],
+                             dtype=torch.float32, device=device).reshape(3)]
+    return torch.cat(parts)

@@ -1,9 +1,9 @@
-"""Loss assembly of the scene train step.
+"""Loss assembly of the train step.
 
-Counterpart of ``envidr_tpu/train/losses.py:compute_losses`` for the scene
-terms: color, diffuse, mask BCE, the SDF relation (``relsdf``), the distance
-bound, back-face, orientation, Cauchy, entropy and eikonal terms.  The
-sphere-surface term (sphere mode) raises until ported.
+Counterpart of ``envidr_tpu/train/losses.py:compute_losses``: color,
+diffuse, mask BCE, the SDF relation (``relsdf``), the distance bound,
+back-face, orientation, Cauchy, entropy and eikonal terms, and sphere mode's
+surface term (``sdf``: the mean |SDF| on the analytic sphere).
 """
 
 from __future__ import annotations
@@ -39,9 +39,6 @@ class LossFlags:
     cauchy_roughness_weighted: bool = False
     weighted_eikonal: bool = False
 
-    def unported(self):
-        return ["use_sdf_loss"] if self.use_sdf_loss else []
-
 
 DEFAULT_WEIGHTS = dict(
     color=1.0, diffuse=1.0, mask=0.0, relsdf=0.0, dist_bound=0.0, backsdf=0.0,
@@ -74,9 +71,6 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
     ``beta`` (Laplace) or ``neus_inv_s`` (NeuS) is the density's sharpness,
     which the Cauchy and entropy terms read; ``roughness`` [N, K, 1] weights
     the Cauchy term under ``cauchy_roughness_weighted``."""
-    unported = flags.unported()
-    if unported:
-        raise NotImplementedError(f"loss terms not ported yet: {unported}")
     w = {**DEFAULT_WEIGHTS, **weights}
     terms: Dict[str, torch.Tensor] = {}
 
@@ -97,6 +91,9 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
 
     zero = torch.zeros((), device=gt_rgb.device)
     pm = outputs.get("point_mask")
+    if pm is None and "relsdf" in outputs:
+        # sphere mode: every consecutive-sample pair is valid (sph_ray.py:165-178)
+        pm = torch.ones_like(outputs["relsdf"], dtype=torch.bool)
 
     if flags.use_relsdf_loss:
         l_d = (outputs["relsdf"] - outputs["est_relsdf"]) ** 2 * pm
@@ -173,5 +170,10 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
             t = ((norms - 1.0) ** 2).mean()
         loss = loss + w["eikonal"] * t
         terms["eikonal"] = t
+
+    if flags.use_sdf_loss and "surf_sdfs" in outputs:
+        t = outputs["surf_sdfs"].abs().mean()
+        loss = loss + w["sdf"] * t
+        terms["sdf"] = t
 
     return loss, {k: v.detach() for k, v in terms.items()}

@@ -1,7 +1,9 @@
-"""Scene-mode training runtime: optimizer groups, train step, grid upkeep,
-EMA, chunked eval render.
+"""Training runtime: optimizer groups, train step, grid upkeep, EMA,
+chunked eval render.
 
-Counterpart of ``envidr_tpu/train/trainer.py`` (scene mode):
+Counterpart of ``envidr_tpu/train/trainer.py``, in scene mode (an occupancy
+grid and a march) and in sphere mode (``env_sph_mode``: the neural-renderer
+pretrain on the env-sphere set, ``render/sphere.py``; no grid):
 
   * Adam(0.9, 0.99, eps=1e-15) with the parameter groups lr/plr/slr/elr,
     each group's gradient clipped to global norm 10, and the learning rate
@@ -32,11 +34,19 @@ Counterpart of ``envidr_tpu/train/trainer.py`` (scene mode):
     (``:469-490, :760-794``);
   * cells no training camera sees marked untrained
     (:meth:`Trainer.mark_untrained_grid`, ``:306-310``);
-  * :meth:`Trainer.evaluate` (PSNR and SSIM over a split, ``:817-904``).
+  * :meth:`Trainer.evaluate` (PSNR and SSIM over a split, ``:817-904``);
+  * the diffuse term alone before ``color_net_start_iter`` (``:337-338``);
+  * sphere mode: each step conditioned on its frame's material and env
+    index, read from one device tensor of the dataset, and, with
+    ``train_renv``, on its mirror-sphere image; ``train_renv`` trains
+    ``renv_net`` alone and ``train_env_only`` the env nets alone
+    (``:54-76``); the eval render takes each view's material and env index
+    (``overwrite_materials``, ``set_env_net_index``; ``:684-713, 817-866``).
 
 A step does not block the host: the finite check, the counters and the
 mean-count EMA stay on the device, and the host reads the EMA once, when an
-epoch chooses its K.  Only the grid refresh may synchronise.
+epoch chooses its K.  Only the grid refresh may synchronise.  A sphere-mode
+step has neither, and never synchronises.
 
 :meth:`Trainer.load_checkpoint` reads the JAX package's checkpoints (a
 pickle of numpy arrays and optax's state tuples, read through an allow-list
@@ -47,9 +57,8 @@ writes the JAX package's keys as plain numpy pytrees, which its
 ``load_checkpoint`` reads, and the port's optimizer state under a key of its
 own (``torch_optimizer``).
 
-Patch and crop sampling, image batches, sphere mode, the renv pretrain
-(``train_renv``, ``train_env_only``), ``split_diffuse_env`` and LPIPS are not
-ported yet and raise.
+Patch and crop sampling, image batches, ``render_env_on_sphere``,
+``split_diffuse_env`` and LPIPS are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -81,18 +90,21 @@ from envidr_tpu_torch.ops.grid import (
 )
 from envidr_tpu_torch.render.indirect import IndirectOptions, render_scene_indirect
 from envidr_tpu_torch.render.scene import SceneRenderOptions, render_scene
+from envidr_tpu_torch.render.sphere import SphereRenderOptions, render_sphere
 from envidr_tpu_torch.train.losses import compute_losses
 from envidr_tpu_torch.train.metrics import PSNRMeter, SSIMMeter
 from envidr_tpu_torch.train.schedules import StepSchedule, level_mask, resolve
 
 # parameter group of each top-level module (network.py:772-819); the rest is "net"
-_GROUP_OF = {"encoder": "grid", "sdf_density": "scalar", "env_net": "env"}
+_GROUP_OF = {"encoder": "grid", "sdf_density": "scalar", "env_net": "env", "env_nets": "env"}
 # frozen_mlps / resume_mlps names -> modules (trainer.py:73-78, 182-184)
 MLP_NAMES = {"specular": "color_net", "diffuse": "diffuse_net", "renv": "renv_net",
              "specular_env": "env_net"}
 CLIP_NORM = 10.0
 EMA_DECAY = 0.95
 ERROR_MAP_CELLS = 128 * 128
+SPHERE_STEPS, SPHERE_STEP_SIZE = 12, 0.002       # the sphere shell (trainer.py:362-368)
+ENV_MODULES = ("env_net", "env_nets", "renv_net")
 
 
 def _unported(opt: Options):
@@ -100,18 +112,23 @@ def _unported(opt: Options):
         "patch_size > 1": opt.patch_size > 1,
         "center_crop": opt.center_crop > 0,
         "image_batch > 1": opt.image_batch > 1,
-        "env_sph_mode / render_env_on_sphere": opt.env_sph_mode or opt.render_env_on_sphere,
+        "render_env_on_sphere": opt.render_env_on_sphere,
         "error_bound_sample": opt.error_bound_sample or opt.error_bound_start_iter > 0,
-        "train_renv / train_env_only": opt.train_renv or opt.train_env_only,
-        "color_net_start_iter > 1": opt.color_net_start_iter > 1,
     }
     return [name for name, bad in checks.items() if bad]
 
 
-def frozen_modules(opt: Options) -> frozenset:
-    """Top-level modules that ``frozen_mlps`` freezes (``_param_labels``)."""
-    return frozenset(MLP_NAMES[n] for n in ("specular", "diffuse", "renv")
-                     if n in opt.frozen_mlps)
+def frozen_modules(opt: Options, names=()) -> frozenset:
+    """The top-level modules, of the network's ``names``, that take no
+    update (``_param_labels``): under ``train_renv`` all but ``renv_net``;
+    under ``train_env_only`` all but the env nets and ``renv_net``; and those
+    ``frozen_mlps`` names."""
+    if opt.train_renv:
+        return frozenset(n for n in names if n != "renv_net")
+    frozen = {MLP_NAMES[n] for n in ("specular", "diffuse", "renv") if n in opt.frozen_mlps}
+    if opt.train_env_only:
+        frozen |= {n for n in names if n not in ENV_MODULES}
+    return frozenset(frozen)
 
 
 class Adam:
@@ -278,7 +295,9 @@ class Trainer:
             self.resume_mlps(opt.color_mlp_path, opt.resume_mlps)
         self.ema_net = copy.deepcopy(self.net).requires_grad_(False)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self.optimizer = Adam(self.net, opt, self.device, frozen_modules(opt))
+        self.optimizer = Adam(self.net, opt, self.device,
+                              frozen_modules(opt, [n for n, _ in self.net.named_children()]))
+        self.use_grid = not opt.env_sph_mode
         self.grid_spec = GridSpec(grid_size=128, bound=cfg.bound,
                                   density_thresh=opt.density_thresh, density_scale=1.0)
         self.grid = init_grid(self.grid_spec, self.device)
@@ -483,20 +502,22 @@ class Trainer:
                 # sized by the dataset (provider.py:277-281), 0.1 everywhere
                 self.error_map = torch.full((len(dataset), ERROR_MAP_CELLS), 0.1,
                                             device=self.device)
-            self._K = self.sample_budget(self._sched)
+            self._K = self.sample_budget(self._sched) if self.use_grid else 0
             rng = np.random.default_rng(self.opt.seed * 100003 + self.epoch)
             self._order = list(dataset.epoch_order(rng))
         return int(self._order.pop(0))
 
     def _refreshes_grid(self) -> bool:
         every = self._sched.update_extra_interval
-        return every > 0 and self.global_step % every == 0
+        return self.use_grid and every > 0 and self.global_step % every == 0
 
     def step_may_sync(self) -> bool:
-        """Whether the next :meth:`train_step` may block the host: only the
+        """Whether the next :meth:`train_step` may block the host: the first
+        step (it copies the dataset to the device) and, in scene mode, the
         first step of an epoch (it reads the mean count to choose K) and a
-        grid-refresh step do."""
-        return not self._order or self._refreshes_grid()
+        grid-refresh step."""
+        return self._images is None or (
+            self.use_grid and (not self._order or self._refreshes_grid()))
 
     def _beta_capped(self) -> bool:
         cfg = self.cfg
@@ -515,14 +536,37 @@ class Trainer:
             grad_rays=sched is not None and sched.grad_rays,
             grad_rays_scale=opt.grad_rays_scale)
 
+    def sphere_options(self, sched: Optional[StepSchedule] = None) -> SphereRenderOptions:
+        """The sphere shell of a train step (``sched`` its epoch) or, with
+        ``sched`` None, of an eval render (``trainer.py:362-368, 793``)."""
+        if sched is None:
+            return SphereRenderOptions(radius=self.opt.env_sph_radius)
+        flags = sched.flags
+        return SphereRenderOptions(
+            num_step=SPHERE_STEPS, step_size=SPHERE_STEP_SIZE, radius=self.opt.env_sph_radius,
+            perturb=True, training=True, with_surf_sdf=flags.use_sdf_loss,
+            with_backsdf=flags.use_backsdf_loss or flags.use_eikonal_loss)
+
     def forward_loss(self, rays_o, rays_d, gt_rgb, bg, alpha_mask, *, K: int,
-                     sched: StepSchedule, noise=None, strat_noise=None):
+                     sched: StepSchedule, noise=None, strat_noise=None, material=None,
+                     env_index=0, r_images=None):
         """Render the rays with the live parameters and assemble the losses:
         -> (loss, render outputs, detached loss terms).  ``noise`` [N]
         perturbs the march, ``strat_noise`` [N, K] in [0, 1) jitters the
         samples (``stratified_sampling``).  Under ``sched.indir_ref`` the
         rays go through the three-pass render, and each of the two holds one
-        draw per pass (:func:`render_scene_indirect`)."""
+        draw per pass (:func:`render_scene_indirect`).  In sphere mode the
+        rays go through :func:`render_sphere` with the frame's ``material``,
+        ``env_index`` and ``r_images`` (``noise`` [N, 12] jitters the shell).
+        Before ``color_net_start_iter`` the net renders the diffuse term
+        alone."""
+        with self.net.diffuse_only(sched.diffuse_only):
+            return self._forward_loss(rays_o, rays_d, gt_rgb, bg, alpha_mask, K=K, sched=sched,
+                                      noise=noise, strat_noise=strat_noise, material=material,
+                                      env_index=env_index, r_images=r_images)
+
+    def _forward_loss(self, rays_o, rays_d, gt_rgb, bg, alpha_mask, *, K, sched, noise,
+                      strat_noise, material, env_index, r_images):
         opt, w, flags, cfg = self.opt, sched.weights, sched.flags, self.cfg
         ropts = SceneRenderOptions(
             max_steps=sched.max_steps, num_samples=K,
@@ -544,7 +588,12 @@ class Trainer:
             # the epoch's anneal, read afresh each step (nothing compiles it in)
             cos_anneal_ratio=sched.cos_anneal_ratio, beta_cap=beta_cap,
             beta_min=w["_beta_min"] if opt.beta_min_sched and laplace else None)
-        if sched.indir_ref:
+        if not self.use_grid:
+            out = render_sphere(self.net, self.sphere_options(sched), rays_o, rays_d, bg,
+                                material=material, env_index=env_index, r_images=r_images,
+                                noise=noise, level_mask=shared["level_mask"],
+                                normal_anneal_ratio=sched.normal_anneal_ratio)
+        elif sched.indir_ref:
             out = render_scene_indirect(self.net, ropts, self.indirect_options(K, sched),
                                         self.grid.bitfield, rays_o, rays_d, bg, self.aabb,
                                         obj_aabb=self.obj_aabb, **shared)
@@ -580,18 +629,24 @@ class Trainer:
 
     def train_step(self, dataset, *, refresh_grid: bool = True) -> Dict[str, object]:
         """One step on the next image of the epoch's shuffled order: the loss,
-        its terms, the step's mean sample count and ``notfinite`` as detached
-        device tensors (nothing is read back), and the epoch's ``K``.
+        its terms, (in scene mode) the step's mean sample count and
+        ``notfinite`` as detached device tensors (nothing is read back), the
+        epoch's ``K`` and the frame's ``index`` in the dataset.
         ``refresh_grid=False`` skips the grid refresh that falls on this step
-        (a benchmark times the steps alone, as ``bench.py`` does)."""
+        (a benchmark times the steps alone, as ``bench.py`` does).  In sphere
+        mode the frame's material, env index and mirror-sphere image
+        condition the render."""
         idx = self._next_index(dataset)
         sched, opt = self._sched, self.opt
         if refresh_grid and self._refreshes_grid():
             self.update_extra_state()
         if self._images is None or self._images[0] is not dataset:
+            sphere = not self.use_grid
             self._images = (dataset, dataset.device_images(self.device),
-                            torch.as_tensor(dataset.poses, device=self.device))
-        _, images, poses = self._images
+                            torch.as_tensor(dataset.poses, device=self.device),
+                            dataset.conditioning(self.device) if sphere else None,
+                            dataset.device_r_images(self.device) if sphere else None)
+        _, images, poses, cond, r_all = self._images
         pose = poses[idx][None]
         if sched.use_error_map:     # importance sampling from the image's error map
             rays = error_map_rays(self.generator, pose, dataset.intrinsics, dataset.H,
@@ -600,9 +655,7 @@ class Trainer:
             rays = sampled_rays(self.generator, pose, dataset.intrinsics, dataset.H,
                                 dataset.W, sched.num_rays)
         rays_o, rays_d, inds = rays["rays_o"][0], rays["rays_d"][0], rays["inds"][0]
-        pix = images[idx][inds].float() / 255.0
-        if opt.color_space == "linear":
-            pix = torch.cat([srgb_to_linear(pix[..., :3]), pix[..., 3:]], dim=-1)
+        pix = self._pixels(images[idx][inds])
         n = pix.shape[0]
         if dataset.C == 4:
             if opt.alpha_bg_mode == "white":
@@ -615,7 +668,13 @@ class Trainer:
             bg = torch.ones((n, 3), device=self.device)
             gt_rgb, alpha_mask = pix[..., :3], None
         noise = strat_noise = None
-        if opt.stratified_sampling:     # jitter the samples, not the march
+        frame = {}
+        if not self.use_grid:       # the shell's jitter and the frame's conditioning
+            noise = torch.rand((n, SPHERE_STEPS), generator=self.generator, device=self.device)
+            row = cond[idx]
+            frame = dict(material=row[:5], env_index=row[5].long(),
+                         r_images=None if r_all is None else self._pixels(r_all[idx][inds]))
+        elif opt.stratified_sampling:     # jitter the samples, not the march
             if sched.indir_ref:         # one draw a pass, the secondary at its budget
                 k2 = self.indirect_options(self._K, sched).indir_num_samples
                 strat_noise = [torch.rand((n, k), generator=self.generator, device=self.device)
@@ -629,57 +688,98 @@ class Trainer:
 
         loss, out, terms = self.forward_loss(rays_o, rays_d, gt_rgb, bg, alpha_mask,
                                              K=self._K, sched=sched, noise=noise,
-                                             strat_noise=strat_noise)
+                                             strat_noise=strat_noise, **frame)
         loss.backward()
         self._apply_update()
         if sched.use_error_map:      # the per-ray EMA of the image's error (:547-555)
             err = (out["image"].detach() - gt_rgb).abs().mean(dim=-1)
             self.error_map[idx] = update_error_row(self.error_map[idx],
                                                    rays["inds_coarse"][0], err)
-        mc = out["counts"].float().mean()
-        prev = torch.as_tensor(self.mean_count, dtype=torch.float64, device=self.device)
-        self.mean_count = torch.where(prev < 0, mc.double(), 0.9 * prev + 0.1 * mc.double())
-        self.global_step += 1
         extra = {}
+        if self.use_grid:
+            mc = out["counts"].float().mean()
+            prev = torch.as_tensor(self.mean_count, dtype=torch.float64, device=self.device)
+            self.mean_count = torch.where(prev < 0, mc.double(),
+                                          0.9 * prev + 0.1 * mc.double())
+            extra["mean_count"] = mc
+        self.global_step += 1
         if "renv_mask" in out:     # share of the marched samples the renv gate opens to
             extra["renv_open"] = (out["renv_mask"].sum() / out["mask"].sum().clamp_min(1)).detach()
-        return {**terms, **extra, "loss": loss.detach(), "mean_count": mc,
-                "notfinite": self.notfinite.clone(), "K": self._K}
+        return {**terms, **extra, "loss": loss.detach(), "notfinite": self.notfinite.clone(),
+                "K": self._K, "index": idx}
+
+    def _pixels(self, pix: torch.Tensor) -> torch.Tensor:
+        """uint8 pixels as floats in [0, 1], the colour linearised under
+        ``color_space=linear`` (``trainer.py:437-455``)."""
+        pix = pix.float() / 255.0
+        if self.opt.color_space == "linear":
+            pix = torch.cat([srgb_to_linear(pix[..., :3]), pix[..., 3:]], dim=-1)
+        return pix
 
     # ------------------------------------------------------------ eval
 
-    def render_image(self, pose, intrinsics, H: int, W: int, *, use_ema: bool = True,
-                     bg_color: float = 1.0) -> Dict[str, np.ndarray]:
-        """Render a whole image in chunks of ``eval_ray_chunk`` rays; a model
-        with the renv branch that trains the indirect pass renders through
-        it (``trainer.py:760-794``)."""
+    def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor, *, use_ema: bool = True,
+                    bg_color: float = 1.0, material=None, env_index=0,
+                    r_images: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Render rays [N, 3] in chunks of ``eval_ray_chunk`` (no gradient):
+        in scene mode through the grid (a model with the renv branch that
+        trains the indirect pass renders through the three passes,
+        ``trainer.py:760-794``), in sphere mode the sphere with ``material``,
+        ``env_index`` and, where given, each ray's mirror-sphere colour
+        ``r_images`` [N, C] (linear; the JAX eval passes none, so that the
+        specular colour of a ``train_renv`` model then comes from the env
+        branch, ``network.py:588-592``)."""
         net = self.ema_net if use_ema else self.net
         opt = self.opt
-        ropts = SceneRenderOptions(
-            max_steps=opt.max_steps, num_samples=self.eval_samples_budget(),
-            early_stop_steps=opt.early_stop_steps, dt_gamma=opt.dt_gamma,
-            T_thresh=opt.T_thresh, min_near=opt.min_near,
-            grid_size=self.grid_spec.grid_size, coarse_march=opt.coarse_march)
-        pose = torch.as_tensor(np.asarray(pose, np.float32), device=self.device)
-        rays_o, rays_d = full_image_rays(pose[None], intrinsics, H, W)
-        rays_o, rays_d = rays_o[0], rays_d[0]
         chunk = opt.eval_ray_chunk or 4096
         keep = ("image", "depth", "weights_sum", "normal_image", "diffuse_image",
                 "specular_image", "roughness_image", "renv_mask_image")
-        indirect = self.cfg.use_renv and opt.indir_ref_start_iter > 0
+        if self.use_grid:
+            ropts = SceneRenderOptions(
+                max_steps=opt.max_steps, num_samples=self.eval_samples_budget(),
+                early_stop_steps=opt.early_stop_steps, dt_gamma=opt.dt_gamma,
+                T_thresh=opt.T_thresh, min_near=opt.min_near,
+                grid_size=self.grid_spec.grid_size, coarse_march=opt.coarse_march)
+            indirect = self.cfg.use_renv and opt.indir_ref_start_iter > 0
+
+            def render(o, d, _):
+                if indirect:
+                    return render_scene_indirect(net, ropts, self.indirect_options(0),
+                                                 self.grid.bitfield, o, d, bg_color,
+                                                 self.eval_aabb, obj_aabb=self.obj_aabb)
+                return render_scene(net, ropts, self.grid.bitfield, o, d, bg_color,
+                                    self.eval_aabb)
+        else:
+            sopts = self.sphere_options()
+
+            def render(o, d, r):
+                return render_sphere(net, sopts, o, d, bg_color, material=material,
+                                     env_index=env_index, r_images=r)
         parts: Dict[str, list] = {}
         with torch.no_grad():
             for s in range(0, rays_o.shape[0], chunk):
-                args = (ropts, self.grid.bitfield, rays_o[s:s + chunk], rays_d[s:s + chunk],
-                        bg_color, self.eval_aabb)
-                res = (render_scene_indirect(net, ropts, self.indirect_options(0), *args[1:],
-                                             obj_aabb=self.obj_aabb)
-                       if indirect else render_scene(net, *args))
+                r = None if r_images is None else r_images[s:s + chunk]
+                res = render(rays_o[s:s + chunk], rays_d[s:s + chunk], r)
                 for k in keep:
                     if k in res:
                         parts.setdefault(k, []).append(res[k])
-        return {k: torch.cat(v).reshape((H, W) + v[0].shape[1:]).cpu().numpy()
-                for k, v in parts.items()}
+        return {k: torch.cat(v) for k, v in parts.items()}
+
+    def render_image(self, pose, intrinsics, H: int, W: int, *, use_ema: bool = True,
+                     bg_color: float = 1.0, material=None, env_index=0,
+                     r_image=None) -> Dict[str, np.ndarray]:
+        """:meth:`render_rays` of every pixel of a view, as numpy [H, W, ...];
+        ``r_image`` uint8 [H, W, C] is the view's mirror-sphere image (sphere
+        mode), linearised as a train step linearises it."""
+        pose = torch.as_tensor(np.asarray(pose, np.float32), device=self.device)
+        rays_o, rays_d = full_image_rays(pose[None], intrinsics, H, W)
+        r = None
+        if r_image is not None:
+            r = self._pixels(torch.as_tensor(np.asarray(r_image), device=self.device)
+                             .reshape(H * W, -1))
+        res = self.render_rays(rays_o[0], rays_d[0], use_ema=use_ema, bg_color=bg_color,
+                               material=material, env_index=env_index, r_images=r)
+        return {k: v.reshape((H, W) + v.shape[1:]).cpu().numpy() for k, v in res.items()}
 
     def evaluate(self, dataset, *, max_images: int = 8, use_ema: bool = True,
                  track_best: bool = True, indices=None) -> float:
@@ -706,11 +806,27 @@ class Trainer:
             self.save_checkpoint(name="best", full=False)
         return psnr
 
-    def render_view(self, dataset, i: int, *, use_ema: bool = True) -> Dict[str, np.ndarray]:
+    def render_view(self, dataset, i: int, *, use_ema: bool = True,
+                    with_r_image: bool = False) -> Dict[str, np.ndarray]:
         """:meth:`render_image` of a split's view ``i`` on the test-time
-        background."""
+        background; in sphere mode with the view's material (the unwrap
+        material under ``overwrite_materials``) and env index (or
+        ``set_env_net_index`` when it is above 0), and with ``with_r_image``
+        its mirror-sphere image (``trainer.py:817-866``)."""
+        kw = {}
+        if not self.use_grid:
+            opt = self.opt
+            material = dataset.material(i)
+            if opt.overwrite_materials:     # utils.py:835-838
+                material = dict(material, roughness=opt.unwrap_roughness,
+                                metallic=opt.unwrap_metallic, color=list(opt.unwrap_color))
+            env_index = int(dataset.env_index[i])
+            if opt.set_env_net_index > 0:    # utils.py:825-826
+                env_index = opt.set_env_net_index
+            kw = dict(material=material, env_index=env_index,
+                      r_image=dataset.r_images[i] if with_r_image else None)
         return self.render_image(dataset.poses[i], dataset.intrinsics, dataset.H, dataset.W,
-                                 use_ema=use_ema, bg_color=eval_bg(self.opt))
+                                 use_ema=use_ema, bg_color=eval_bg(self.opt), **kw)
 
     # ------------------------------------------------------ checkpoints
 

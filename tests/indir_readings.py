@@ -72,6 +72,18 @@ def port_f64_update():
     return before, export_jax_layout(tr.net)
 
 
+def full_view_gate_pixels():
+    """The pixels of shiny3's val view 0 at full resolution (400x400) where
+    the port's three-pass render opens the renv gate: their flat indices
+    (tests/test_torch_indir_gate.py pins them)."""
+    opt = tc.load_options(tc.SHINY3_INI, **tc.NO_PRETRAIN, eval_ray_chunk=4096)
+    tr = tc.Trainer(opt, tc.network_config(opt), device="cpu")
+    tr.load_checkpoint(tc.SHINY3_CKPT)
+    val = tc.NeRFDataset(tc.SHINY3_DATA, "val", scale=opt.scale)
+    res = tr.render_view(val, 0)
+    return np.flatnonzero(res["renv_mask_image"].reshape(-1) > 0.5)
+
+
 def _by_leaf(errs):
     out = {}
     for k, v in errs.items():

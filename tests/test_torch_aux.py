@@ -236,9 +236,22 @@ def aux_term_case(case):
 
 
 def test_sphere_surface_term_still_raises():
-    with pytest.raises(NotImplementedError, match="use_sdf_loss"):
-        tlosses.compute_losses({"image": torch.zeros(2, 3)}, torch.zeros(2, 3),
-                               tlosses.LossFlags(use_sdf_loss=True), {})
+    """The sphere-surface term is JAX's: mean |surf_sdfs| at its weight.
+
+    The name is a leftover: this test checked that the term raised while
+    sphere mode was unported, and it keeps its name so that its record
+    continues; it now holds the ported term to JAX and raises nothing."""
+    rng = np.random.default_rng(9)
+    img, gt = rng.uniform(size=(2, 8, 3)).astype(np.float32)
+    surf = rng.normal(0, 0.1, 8).astype(np.float32)
+    w = {"sdf": 0.1}
+    jl, jterms = jlosses.compute_losses({"image": jnp.asarray(img), "surf_sdfs": jnp.asarray(surf)},
+                                        jnp.asarray(gt), jlosses.LossFlags(use_sdf_loss=True), w)
+    tl, tterms = tlosses.compute_losses({"image": torch.from_numpy(img),
+                                         "surf_sdfs": torch.from_numpy(surf)},
+                                        torch.from_numpy(gt), tlosses.LossFlags(use_sdf_loss=True), w)
+    assert float(tterms["sdf"]) == pytest.approx(float(jterms["sdf"]), rel=1e-6)
+    assert float(tl) == pytest.approx(float(jl), rel=1e-6)
 
 
 # ------------------------------------------------ render: aux and jitter

@@ -117,19 +117,21 @@ def export_jax_layout(net, grads: bool = False) -> Dict[str, Any]:
             t = torch.zeros_like(t) if t.grad is None else t.grad
         return t.detach().cpu().numpy()
 
-    if hasattr(net.encoder, "axes"):             # the CP encoder
-        encoder = {"axes": [[val(t) for t in lvl] for lvl in net.encoder.axes],
-                   "proj": [val(t) for t in net.encoder.proj]}
+    out: Dict[str, Any] = {}
+    if not hasattr(net, "encoder"):              # the frequency encoding
+        pass
+    elif hasattr(net.encoder, "axes"):           # the CP encoder
+        out["encoder"] = {"axes": [[val(t) for t in lvl] for lvl in net.encoder.axes],
+                          "proj": [val(t) for t in net.encoder.proj]}
     else:
-        encoder = {"embeddings": val(net.encoder.embeddings)}
-    out: Dict[str, Any] = {"encoder": encoder}
+        out["encoder"] = {"embeddings": val(net.encoder.embeddings)}
     if hasattr(net, "sdf_density"):            # not in a density field
         out["sdf_density"] = {k: val(t) for k, t in net.sdf_density.named_parameters()}
-    for name in ("sdf_net", "diffuse_net", "color_net", "env_net", "renv_net"):
+    for name in ("sdf_net", "diffuse_net", "color_net", "env_net", "env_nets", "renv_net"):
         if hasattr(net, name):
             out[name] = []
             for layer in getattr(net, name):
-                p = {"w": val(layer.weight).T}
+                p = {"w": np.swapaxes(val(layer.weight), -1, -2)}
                 if layer.bias is not None:
                     p["b"] = val(layer.bias)
                 out[name].append(p)

@@ -95,3 +95,23 @@ def test_chip_smoke_alone_fails(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_env_sphere_generator_without_card_raises(monkeypatch):
+    """The env-sphere set is made on the card unless the CPU is asked for."""
+    from envidr_tpu_torch.data.env_dataset import generate_env_sphere
+    from envidr_tpu_torch.render.pbr import PrefilteredEnv, procedural_envmap
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_env_sphere("val", 1, size=8, env_res=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PrefilteredEnv(procedural_envmap(0, 4, 8))
+
+
+def test_sphere_mode_modules_read_no_untracked_file():
+    """The sphere path's sources name no generated dataset: the card run
+    generates the env-sphere set in memory and reads only tracked files."""
+    for rel in ("data/env_dataset.py", "render/pbr.py", "render/sphere.py",
+                "geometry/lighting.py", "data/hdri.py"):
+        text = (PKG / rel).read_text()
+        assert "env_sphere_synth" not in text, rel

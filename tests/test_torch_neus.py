@@ -16,6 +16,7 @@ step rounds where the port rounds."""
 
 import copy
 import os
+import re
 
 import numpy as np
 import pytest
@@ -187,11 +188,13 @@ def test_cp_step_gradients_match(cp_step, leaf):
     assert max(errs.values()) <= tol, errs
 
 
-# the 17 shipped configs the port trains, each from the first epoch at which
-# every one of its scheduled terms is on: back-face and Cauchy from 40 and
-# eikonal from 120 (r4_laplace_ref.ini), the beta cap held from 60 or 80, the
-# beta floor from 150, the indirect pass and then grad rays (indir_ref_start_iter
-# + grad_rays_start_iter + 1); two views, so the third step starts the next epoch
+# the 20 shipped configs, each trained from the first epoch at which every
+# one of its scheduled terms is on: back-face and Cauchy from 40 and eikonal
+# from 120 (r4_laplace_ref.ini), the beta cap held from 60 or 80, the beta
+# floor from 150, the indirect pass and then grad rays (indir_ref_start_iter +
+# grad_rays_start_iter + 1), the specular branch of the neural-renderer
+# pretrain from color_net_start_iter (5); two views, so the third step starts
+# the next epoch
 TRAINED_CONFIGS = {
     "synth_spheres.ini": 1, "synth_spheres_sorted.ini": 1, "synth_spheres_cp.ini": 1,
     "synth_spheres_neus.ini": 1, "r4_laplace_betamin.ini": 151, "r4_laplace_ref.ini": 121,
@@ -200,7 +203,9 @@ TRAINED_CONFIGS = {
     "scenes/synth_shiny_ours.ini": 51, "scenes/shiny2_indir.ini": 76,
     "scenes/shiny3_indir.ini": 76, "scenes/shiny2_stack.ini": 18,
     "scenes/materials.ini": 241, "scenes/toaster.ini": 241,
+    "neural_renderer_cp.ini": 5, "neural_renderer_synth.ini": 5, "neural_renderer_renv.ini": 1,
 }
+PRETRAIN = os.path.join(ROOT, "assets", "env_sphere_pretrain_best.ckpt")
 RENV_PRETRAIN = os.path.join(ROOT, "assets", "renv_pretrain_best.ckpt")
 # the hash configs' table cut as tests/test_torch_helpers.py cuts it; the
 # scene configs load a pretrain's rendering MLPs (their own paths are under
@@ -212,25 +217,37 @@ CONFIG_EXTRA = {
     "synth_spheres_sorted.ini": dict(log2_hashmap_size=12),
     "synth_spheres_density.ini": dict(log2_hashmap_size=12),
     "scenes/synth_spheres_ours.ini": dict(
-        color_mlp_path=os.path.join(ROOT, "assets", "env_sphere_pretrain_best.ckpt"),
-        hidden_dim_color=64, hidden_dim_env=160),
+        color_mlp_path=PRETRAIN, hidden_dim_color=64, hidden_dim_env=160),
     "scenes/synth_shiny_ours.ini": _RENV, "scenes/shiny2_indir.ini": _RENV,
     "scenes/shiny3_indir.ini": _RENV,
     # the ray-count schedules (2048 -> 4096 rays) cut to the test's 64 rays
     "scenes/shiny2_stack.ini": dict(_RENV, log2_hashmap_size=12, num_rays_sched=()),
     "scenes/materials.ini": dict(_RENV, log2_hashmap_size=12),
     "scenes/toaster.ini": dict(_RENV, log2_hashmap_size=12, num_rays_sched=()),
+    "neural_renderer_synth.ini": dict(log2_hashmap_size=12),
+    # the renv pretrain as the card runs it (ROADMAP A5): the CP pretrain
+    # resumed whole (its 16 levels; its MLP widths), CP in place of the
+    # shipped hashgrid_diff, which cannot take the CP tree
+    # (test_shipped_renv_config_cannot_take_the_cp_pretrain)
+    "neural_renderer_renv.ini": dict(color_mlp_path=PRETRAIN, encoding_pos="cp",
+                                     num_levels=16, hidden_dim_color=64, hidden_dim_env=160),
 }
+# the sphere configs train on the env-sphere set, generated in memory
+SPHERE_CONFIGS = ("neural_renderer_cp.ini", "neural_renderer_synth.ini",
+                  "neural_renderer_renv.ini")
 # the configs whose datasets the repo tracks read them through the port's
 # loader at downscale 8 (two views); materials and toaster read datasets
 # that are not in the repo and train on the in-memory sphere scene
 TRACKED_DATA = ("scenes/synth_shiny_ours.ini", "scenes/shiny2_indir.ini",
                 "scenes/shiny3_indir.ini", "scenes/shiny2_stack.ini")
 _DATA = {}
-# the 3 the port does not train yet, and what each lacks
-UNPORTED_CONFIGS = {
-    "neural_renderer_cp.ini": "env_sph_mode", "neural_renderer_synth.ini": "env_sph_mode",
-    "neural_renderer_renv.ini": "env_sph_mode.*train_renv",
+# options of the shipped schema that the port does not run yet, on a config
+# that trains, and the name each raises with
+UNPORTED_OPTIONS = {
+    "bg_radius": (dict(bg_radius=2.0), "bg_radius > 0"),
+    "split_diffuse_env": (dict(split_diffuse_env=True), "split_diffuse_env"),
+    "error_bound_sample": (dict(error_bound_sample=True), "error_bound_sample"),
+    "patch_size": (dict(patch_size=4), "patch_size > 1"),
 }
 
 
@@ -238,8 +255,8 @@ def test_config_lists_cover_every_shipped_config():
     import glob
     shipped = {os.path.relpath(p, os.path.join(ROOT, "configs"))
                for p in glob.glob(os.path.join(ROOT, "configs", "**", "*.ini"), recursive=True)}
-    assert shipped == set(TRAINED_CONFIGS) | set(UNPORTED_CONFIGS)
-    assert (len(shipped), len(TRAINED_CONFIGS)) == (20, 17)
+    assert shipped == set(TRAINED_CONFIGS)
+    assert (len(shipped), len(TRAINED_CONFIGS)) == (20, 20)
 
 
 @pytest.mark.usefixtures("one_torch_thread")
@@ -248,6 +265,7 @@ def test_config_builds_a_trainer_and_takes_a_step(config):
     """Each config the port trains: a trainer on the CPU at small widths,
     three steps on the scene from the epoch at which all its scheduled terms
     are on, across an epoch boundary."""
+    from envidr_tpu_torch.data.env_dataset import generate_env_sphere
     from envidr_tpu_torch.data.nerf_dataset import NeRFDataset
     from envidr_tpu_torch.data.synth_scene import SynthSpheres
     opt = torch_load(os.path.join(ROOT, "configs", config),
@@ -256,16 +274,22 @@ def test_config_builds_a_trainer_and_takes_a_step(config):
     tr.epoch = TRAINED_CONFIGS[config] - 1
     frozen = {n: [p.detach().clone() for p in getattr(tr.net, n).parameters()]
               for n in tr.optimizer.frozen_names}
+    first = {n: p.detach().clone() for n, p in tr.net.named_parameters()}
     if config in TRACKED_DATA:
         if opt.path not in _DATA:       # each scene decoded once a process
             _DATA[opt.path] = NeRFDataset(os.path.join(ROOT, opt.path), "train",
                                           scale=opt.scale, downscale=8)
         data = copy.copy(_DATA[opt.path])
         data.images, data.poses = data.images[:2], data.poses[:2]
+    elif config in SPHERE_CONFIGS:
+        data = generate_env_sphere("train", 2, size=40, env_res=8, with_renv=opt.train_renv,
+                                   device="cpu")
     else:
         data = SynthSpheres("train", size=40, n=2, scale=opt.scale)
     ms = [tr.train_step(data) for _ in range(3)]
-    assert all(np.isfinite(float(m["loss"])) for m in ms) and float(ms[0]["mean_count"]) > 0
+    assert all(np.isfinite(float(m["loss"])) for m in ms)
+    assert tr.use_grid == (config not in SPHERE_CONFIGS)
+    assert float(ms[0]["mean_count"]) > 0 if tr.use_grid else "mean_count" not in ms[0]
     assert int(tr.notfinite) == 0 and int(tr.applied_steps) == 3
     assert tr.epoch == TRAINED_CONFIGS[config] + 1
     flags = tr._sched.flags
@@ -277,15 +301,43 @@ def test_config_builds_a_trainer_and_takes_a_step(config):
         assert ms[-1]["K"] == 128                   # the early stop raised at epoch 40
     for n, ps in frozen.items():
         assert all(torch.equal(a, b) for a, b in zip(ps, getattr(tr.net, n).parameters())), n
-    assert bool(frozen) == config.startswith("scenes/")
+    assert bool(frozen) == (config.startswith("scenes/") or opt.train_renv)
+    if config in SPHERE_CONFIGS:           # every term and the specular branch on
+        assert not tr._sched.diffuse_only and flags.use_sdf_loss == (not opt.train_renv)
+        assert set(ms[-1]) >= ({"color"} if opt.train_renv
+                               else {"color", "backsdf", "eikonal", "sdf"})
+        moved = {n for n, p in tr.net.named_parameters()
+                 if not torch.equal(p, first[n])}
+        assert moved and all(n.startswith("renv_net") for n in moved) == opt.train_renv
     if opt.indir_ref_start_iter > 0:       # the three-pass render with grad rays
         assert tr._sched.indir_ref and tr._sched.grad_rays and tr.cfg.use_renv
         assert "renv_open" in ms[-1]
         assert (tr.error_map is not None) == opt.error_map
 
 
-@pytest.mark.parametrize("config", sorted(UNPORTED_CONFIGS))
-def test_unported_config_raises_naming_what_is_missing(config):
-    opt = torch_load(os.path.join(ROOT, "configs", config), **CP_SMALL)
-    with pytest.raises(NotImplementedError, match=UNPORTED_CONFIGS[config]):
+@pytest.mark.parametrize("option", sorted(UNPORTED_OPTIONS))
+def test_unported_config_raises_naming_what_is_missing(option):
+    extra, name = UNPORTED_OPTIONS[option]
+    opt = torch_load(CP_INI, **CP_SMALL, **extra)
+    with pytest.raises(NotImplementedError, match=re.escape(name)):
+        Trainer(opt, torch_netcfg(opt), device="cpu")
+
+
+def test_shipped_renv_config_cannot_take_the_cp_pretrain(tmp_path):
+    """neural_renderer_renv.ini as shipped (hashgrid_diff) resuming ``all``
+    from the CP pretrain: JAX takes the CP encoder tree as it is
+    (``_merge_tolerant`` fails, trainer.py:190-203) and its first render then
+    looks for the hash table that tree lacks; the port refuses at once,
+    naming the encoder."""
+    from envidr_tpu.train.trainer import Trainer as JaxTrainer
+    kw = dict(color_mlp_path=PRETRAIN, log2_hashmap_size=12)
+    jopt = jax_load(os.path.join(ROOT, "configs", "neural_renderer_renv.ini"),
+                    workspace=str(tmp_path), **kw)
+    jt = JaxTrainer(jopt, jax_netcfg(jopt), workspace=str(tmp_path))
+    assert set(jt.state["params"]["encoder"]) == {"axes", "proj"}
+    with pytest.raises(KeyError, match="embeddings"):
+        jt.render_image(np.eye(4, dtype=np.float32), (8.0, 8.0, 4.0, 4.0), 8, 8, mode="sphere",
+                        material={"roughness": 0.3, "metallic": 0.5, "color": [0.5] * 3})
+    opt = torch_load(os.path.join(ROOT, "configs", "neural_renderer_renv.ini"), **kw)
+    with pytest.raises(ValueError, match="encoder"):
         Trainer(opt, torch_netcfg(opt), device="cpu")

@@ -237,10 +237,13 @@ def test_train_step_returns_device_tensors():
     ds = SynthSpheres("train", size=24, n=2, scale=topt.scale)
     tr = Trainer(topt, tcfg, device="cpu", net=net)
     m = tr.train_step(ds)
-    assert set(m) == {"color", "mask", "eikonal", "loss", "mean_count", "notfinite", "K"}
+    assert set(m) == {"color", "mask", "eikonal", "loss", "mean_count", "notfinite", "K",
+                      "index"}
     for k, v in m.items():
         if k == "K":
             assert isinstance(v, int) and v == tr._K
+        elif k == "index":          # the frame the step drew
+            assert isinstance(v, int) and 0 <= v < len(ds)
         else:
             assert isinstance(v, torch.Tensor) and not v.requires_grad, k
             assert v.device.type == "cpu" and v.dim() == 0, k
