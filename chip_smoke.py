@@ -126,6 +126,39 @@ seconds:
   render_renv  assets/renv_pretrain_best.ckpt on the renv set's val views at
            400x400 with their mirror images and without: both PSNRs and the
            largest change, which must be above 0
+  cli      the training CLI (envidr_tpu_torch.apps.cli.main, in process) on
+           configs/synth_spheres_cp.ini at full width in a temporary
+           workspace: --max-epochs 2 --eval-interval 2, then --resume
+           --max-epochs 3 (it must start at epoch 3 from global step 100),
+           then --test --ckpt best; the files it writes (ep0002.ckpt,
+           ep0003.ckpt, best.ckpt, args.json, results/final_rgb.png read back
+           at 400x400), each epoch's seconds, rays/s and loss from its log,
+           the eval and test PSNRs; each epoch's loss must be at most
+           CLI_LOSS_FALL of the one before; the second epoch runs under sync
+           debug mode "warn", and more than one host sync beyond the steps
+           step_may_sync names fails the phase
+  cli_hash the CLI for one epoch of configs/synth_spheres.ini on the kernel's
+           path (--set hash_scatter_impl=mixed --set hash_custom_grad=on):
+           scatter_add_rows must launch; counts zeroed just before, read after
+  mesh     the field of assets/neus_cp_long_best.ckpt on a 256^3 grid (on the
+           card) and marching tetrahedra in C++ (envidr_tpu_torch/native,
+           built by g++): the seconds of each, the vertex and face counts, the
+           vertices' mean and largest |analytic SDF| against the three spheres
+           of data/synth_scene.py in world units; the C++ and the numpy
+           marching tetrahedra on a 64^3 crop of the field must give the same
+           welded vertex set
+  demo     the reference's demo golden (tests/golden/demo_render.npz) through
+           apps/demo_render.py on the card, at tests/test_demo_parity.py's
+           tolerances, then its CLI at 400x400: mean and foreground share
+  unwrap   tests/golden/unwrap_env.npz through apps/unwrap.py on the card
+           (atol UNWRAP_ATOL), then the CLI's 512x1024 unwrap of env 3 of
+           assets/env_sphere_pretrain_best.ckpt, timed
+  turntable  apps/turntable.py: 8 frames at 400x400 of the CP checkpoint with
+           --env-rot, ms a frame; frames 0 and 4 must differ (the rotation
+           moves the specular term)
+  viewer   apps/viewer.py's HTTP server on an ephemeral localhost port in a
+           thread: one GET /render at 256 must return a PNG that the port's
+           decoder reads
 
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit code
@@ -221,6 +254,22 @@ PRETRAIN_PSNR_MIN_DB = 29.5866     # the JAX package's render of the generated v
                                    # (tests/sphere_readings.py), less 1 dB; the
                                    # card renders the full 400x400 view
 # sphere_parity: neural_renderer_cp.ini cut as cp_parity cuts its config, two env nets
+DEMO_GOLDEN = os.path.join(ROOT, "tests", "golden", "demo_render.npz")
+UNWRAP_GOLDEN = os.path.join(ROOT, "tests", "golden", "unwrap_env.npz")
+# tests/test_demo_parity.py's tolerances, and tests/test_sphere_golden.py's
+DEMO_TOL = dict(kappa_rtol=1e-4, kappa_atol=1e-6, diffuse=2e-5, specular=5e-4,
+                specular_mean=2e-5)
+UNWRAP_ATOL = 3e-4
+CLI_EPOCHS = 3                     # two, then one more after --resume
+# each CLI epoch's loss at most this share of the one before: the card read
+# 0.58523 / 0.46809 / 0.40740 (ratios 0.80, 0.87); after 3 epochs the PSNR
+# does not separate a trained model from an untrained one (test view 9.890 dB
+# from best.ckpt, 9.901 untrained; PERF.md §6)
+CLI_LOSS_FALL = 0.95
+CLI_SIZE, CLI_TRAIN_VIEWS = 400, 50  # the in-memory sphere scene's
+CLI_INI, HASH_INI = CP_INI, os.path.join(ROOT, "configs", "synth_spheres.ini")
+MESH_RES, MESH_CROP = 256, 64
+TURNTABLE_FRAMES, TURNTABLE_SIZE = 8, 400
 SPHERE_PARITY_CUT = dict(num_levels=4, desired_resolution=64, cp_rank=8, hidden_dim=16,
                          hidden_dim_color=16, hidden_dim_env=16, num_envs=2)
 # sphere_parity's probe rays (18 with shell samples outside the bound).  The
@@ -1523,6 +1572,360 @@ def render_renv(libs):
           seconds=repr([round(v, 3) for v in secs]), launches=launches)
 
 
+class SyncWatch:
+    """Counts the host syncs of one CLI epoch (the second) under sync debug
+    mode "warn": those of the steps :meth:`Trainer.step_may_sync` names, and
+    the rest (the epoch's one read of its averaged metrics)."""
+
+    def __init__(self, trainer_cls, at_epoch: int = 1):
+        self.cls, self.at_epoch = trainer_cls, at_epoch
+        self.total = self.in_may_sync = self.may_sync_steps = self.steps = 0
+        self.record, self.entries, self.beyond_at = None, [], []
+
+    def __enter__(self):
+        import warnings
+        import torch
+        epoch, step, watch = self.cls.train_one_epoch, self.cls.train_step, self
+
+        def train_one_epoch(tr, dataset):
+            watch.entries.append((tr.epoch, tr.global_step))
+            if tr.epoch != watch.at_epoch or watch.steps:
+                return epoch(tr, dataset)
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                watch.record, watch._tail = rec, 0
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return epoch(tr, dataset)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    watch.total = watch._syncs(0)
+                    watch.beyond_at += watch._where(watch._tail, len(rec))
+                    watch.record = None
+
+        def train_step(tr, dataset, **kw):
+            if watch.record is None:
+                return step(tr, dataset, **kw)
+            may, n0 = tr.step_may_sync(), len(watch.record)
+            watch.beyond_at += watch._where(watch._tail, n0)
+            out = step(tr, dataset, **kw)
+            watch.steps += 1
+            if may:
+                watch.may_sync_steps += 1
+                watch.in_may_sync += watch._syncs(n0)
+            else:
+                watch.beyond_at += watch._where(n0, len(watch.record))
+            watch._tail = len(watch.record)
+            return out
+
+        self._saved = (epoch, step)
+        self.cls.train_one_epoch, self.cls.train_step = train_one_epoch, train_step
+        return self
+
+    SYNC_WARNING = "called a synchronizing CUDA operation"
+
+    def _syncs(self, start: int) -> int:
+        return sum(self.SYNC_WARNING in str(w.message) for w in self.record[start:])
+
+    def _where(self, start: int, stop: int):
+        return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                for w in self.record[start:stop] if self.SYNC_WARNING in str(w.message)]
+
+    def __exit__(self, *exc):
+        self.cls.train_one_epoch, self.cls.train_step = self._saved
+
+
+def _epoch_lines(workspace: str):
+    """(epoch, seconds, rays/s, loss) of each ``[ep N]`` line of a CLI log."""
+    out = []
+    for line in open(os.path.join(workspace, "log.txt")).read().splitlines():
+        m = re.match(r"\[ep +(\d+)\] loss=([\d.]+) .*rays/s=(\d+) .*t=([\d.]+)s", line)
+        if m:
+            out.append((int(m.group(1)), float(m.group(4)), int(m.group(3)),
+                        float(m.group(2))))
+    return out
+
+
+def cli_phase():
+    """The CLI on synth_spheres_cp.ini at full width: train 2 epochs (eval
+    at 2), resume for a third, test from best; the losses must fall, the
+    second epoch's host syncs counted."""
+    import numpy as np
+    import tempfile
+    from envidr_tpu_torch.apps import cli
+    from envidr_tpu_torch.data.png import read_png
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="envidr_cli_") as ws:
+        common = ["--config", CLI_INI, "--workspace", ws]
+        t = time.perf_counter()
+        with SyncWatch(Trainer) as watch:
+            eval_psnr = cli.main(common + ["--max-epochs", "2", "--eval-interval", "2"])
+            resume_psnr = cli.main(common + ["--resume", "--max-epochs", str(CLI_EPOCHS)])
+        train_s = time.perf_counter() - t
+        test_psnr = cli.main(common + ["--test", "--ckpt", "best"])
+        files = sorted(os.listdir(os.path.join(ws, "checkpoints")))
+        for name in ("ep0002.ckpt", "ep0003.ckpt", "best.ckpt"):
+            if name not in files:
+                raise AssertionError(f"cli: no checkpoints/{name} in {files}")
+        with open(os.path.join(ws, "args.json")) as f:
+            n_args = len(json.load(f))
+        final = read_png(os.path.join(ws, "results", "final_rgb.png"))
+        if final.shape != (CLI_SIZE, CLI_SIZE, 3):
+            raise AssertionError(f"cli: results/final_rgb.png is {final.shape}")
+        epochs = _epoch_lines(ws)
+    # each run's first train_one_epoch entry: (epoch, global_step) before it
+    starts = [watch.entries[0], watch.entries[2]]
+    if starts != [(0, 0), (2, 2 * CLI_TRAIN_VIEWS)] or [e[0] for e in epochs] != [1, 2, 3]:
+        raise AssertionError(f"cli: epoch entries {watch.entries}, log epochs {epochs}; "
+                             "the resumed run must start at epoch 3 from global step 100")
+    beyond = watch.total - watch.in_may_sync
+    if watch.steps != CLI_TRAIN_VIEWS or beyond > 1:
+        raise AssertionError(f"cli: the second epoch ({watch.steps} steps) synchronised "
+                             f"{watch.total} times, {watch.in_may_sync} in the "
+                             f"{watch.may_sync_steps} steps step_may_sync names: "
+                             f"{beyond} beyond them (at most 1), at {watch.beyond_at}")
+    # the epochs move the model: each epoch's mean loss (the log's) at most
+    # CLI_LOSS_FALL of the one before, the resumed third's too; an optimizer
+    # that never steps, an epoch without its steps or a resume from fresh
+    # weights (its loss back near epoch 1's) fails
+    losses = [e[3] for e in epochs]
+    if not all(b <= CLI_LOSS_FALL * a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"cli: epoch losses {losses}: each must be at most "
+                             f"{CLI_LOSS_FALL} of the one before")
+    if not all(np.isfinite(p) for p in (eval_psnr, resume_psnr, test_psnr)):
+        raise AssertionError(f"cli: PSNRs {eval_psnr}, {resume_psnr}, {test_psnr}")
+    phase("cli", config="synth_spheres_cp.ini", epochs=CLI_EPOCHS,
+          epoch_s=repr([e[1] for e in epochs]), rays_per_s=repr([e[2] for e in epochs]),
+          epoch_loss=repr(losses),
+          eval_psnr_db_ep2=eval_psnr, eval_psnr_db_ep3=resume_psnr, test_psnr_db=test_psnr,
+          resumed_from=repr(starts[1]), checkpoints=repr(files), args_json_keys=n_args,
+          syncs_epoch2=watch.total, syncs_in_may_sync_steps=watch.in_may_sync,
+          may_sync_steps=watch.may_sync_steps, syncs_beyond=beyond,
+          syncs_beyond_at=repr(watch.beyond_at), train_runs_s=train_s)
+
+
+def cli_hash_phase(libs):
+    """One CLI epoch of synth_spheres.ini on the kernel's path; returns the
+    scatter_add_rows launches."""
+    import numpy as np
+    import tempfile
+    from envidr_tpu_torch.apps import cli
+    from envidr_tpu_torch.config import HASH_KERNEL_PATH
+
+    with tempfile.TemporaryDirectory(prefix="envidr_cli_hash_") as ws:
+        sets = [a for k, v in HASH_KERNEL_PATH.items() for a in ("--set", f"{k}={v}")]
+        for lib in libs.values():                    # the CLI's hash path starts here
+            lib.launches = 0
+        t = time.perf_counter()
+        psnr = cli.main(["--config", HASH_INI, "--workspace", ws, "--max-epochs", "1", *sets])
+        seconds = time.perf_counter() - t
+        launches = libs["scatter_add_rows"].launches   # and ends here
+        (_, epoch_s, rays, _), = _epoch_lines(ws)
+    if not launches > 0 or not np.isfinite(psnr):
+        raise AssertionError(f"cli_hash: scatter_add_rows launches {launches}, PSNR {psnr}")
+    phase("cli_hash", config="synth_spheres.ini", overrides=repr(HASH_KERNEL_PATH),
+          scatter_launches=launches, epoch_s=epoch_s, rays_per_s=rays, eval_psnr_db=psnr,
+          seconds=seconds, launches=_launches(libs))
+    return launches
+
+
+def mesh_phase():
+    """save_mesh's pieces on the CP checkpoint at MESH_RES: the field on the
+    card, the C++ marching tetrahedra, the OBJ; the C++ against numpy on a
+    crop."""
+    import numpy as np
+    import tempfile
+    import torch
+    from envidr_tpu_torch.apps import mesh_extract
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SPHERES
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(CP_INI)
+    trainer = Trainer(opt, network_config(opt))
+    trainer.load_checkpoint(CP_CKPT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    field = mesh_extract.mesh_field(trainer, MESH_RES)
+    t1 = time.perf_counter()
+    verts, faces = mesh_extract.mesh_from_field(field, trainer.cfg)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mesh_extract.write_obj(os.path.join(d, "mesh.obj"), verts, faces)
+        obj_bytes = os.path.getsize(os.path.join(d, "mesh.obj"))
+    sdf = np.min([np.linalg.norm(verts - opt.scale * c[[1, 2, 0]], axis=-1) - opt.scale * r
+                  for c, r, _ in SPHERES], axis=0)
+    lo = MESH_RES // 2
+    crop = -field[lo:lo + MESH_CROP, lo:lo + MESH_CROP, lo:lo + MESH_CROP]
+    nv, nf = mesh_extract.marching_tets(crop)
+    t3 = time.perf_counter()
+    rv, rf = mesh_extract.marching_tets_numpy(crop)
+    numpy_s = time.perf_counter() - t3
+    same = (nv.shape == rv.shape and nf.shape == rf.shape
+            and set(map(tuple, np.round(nv * 1024).astype(np.int64)))
+            == set(map(tuple, np.round(rv * 1024).astype(np.int64))))
+    if not same or len(nv) == 0:
+        raise AssertionError(f"mesh: native {nv.shape}/{nf.shape} and numpy {rv.shape}/"
+                             f"{rf.shape} marching tets differ on the {MESH_CROP}^3 crop")
+    if not len(verts) or not np.isfinite(verts).all() or np.abs(sdf).mean() > 0.02:
+        raise AssertionError(f"mesh: {len(verts)} vertices, mean |sdf| {np.abs(sdf).mean()}")
+    phase("mesh", checkpoint=os.path.relpath(CP_CKPT, ROOT), resolution=MESH_RES,
+          field_s=t1 - t0, native_tets_s=t2 - t1, verts=len(verts), faces=len(faces),
+          obj_bytes=obj_bytes, mean_abs_sdf=float(np.abs(sdf).mean()),
+          max_abs_sdf=float(np.abs(sdf).max()), crop=f"{MESH_CROP}^3",
+          crop_verts=len(nv), crop_native_equals_numpy=same, crop_numpy_s=numpy_s)
+
+
+def demo_phase():
+    """The demo golden on the card, then the demo CLI at 400x400."""
+    import numpy as np
+    import tempfile
+    import torch
+    from envidr_tpu_torch.apps import demo_render
+
+    fix = np.load(DEMO_GOLDEN)
+    mask = fix["mask"]
+    rays_o = torch.from_numpy(fix["rays_o"][mask]).cuda()
+    rays_d = torch.from_numpy(fix["rays_d"][mask]).cuda()
+    xyzs = rays_o + rays_d * torch.from_numpy(fix["nears"][mask]).cuda()
+    errs = {}
+    for case in (0, 1):
+        m = fix[f"case{case}_material"]
+        nets, xyz = demo_render.load_demo_nets(int(m[5]), device=rays_d.device)
+        with torch.no_grad():
+            kappa, diffuse, specular = demo_render.shade(
+                nets, xyz, torch.as_tensor(m[:5], dtype=torch.float32, device=rays_d.device),
+                rays_d, xyzs)
+        diffuse, specular = diffuse.cpu().numpy(), specular.cpu().numpy()
+        k_ref = float(fix[f"case{case}_kappa_inv"])
+        e = dict(kappa=abs(float(kappa) - k_ref),
+                 diffuse=float(np.abs(diffuse - fix[f"case{case}_diffuse"]).max()),
+                 specular=float(np.abs(specular - fix[f"case{case}_specular"]).max()),
+                 specular_mean=float(np.abs(specular - fix[f"case{case}_specular"]).mean()))
+        errs[case] = e
+        if not (e["kappa"] <= DEMO_TOL["kappa_atol"] + DEMO_TOL["kappa_rtol"] * abs(k_ref)
+                and e["diffuse"] <= DEMO_TOL["diffuse"] and e["specular"] <= DEMO_TOL["specular"]
+                and e["specular_mean"] < DEMO_TOL["specular_mean"]):
+            raise AssertionError(f"demo: case {case} off the golden: {e} (bounds {DEMO_TOL})")
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        img = demo_render.main(["--size", "400", "--out", os.path.join(d, "demo.png")])
+        seconds = time.perf_counter() - t
+    img8 = np.round(img * 255).astype(np.uint8)
+    fg = float((img8.min(-1) < 255).mean())
+    if img.shape != (400, 400, 3) or not 0.3 < fg < 0.7:
+        raise AssertionError(f"demo: image {img.shape}, foreground share {fg}")
+    phase("demo", golden_errors=repr(errs), size="400x400", mean=float(img.mean()), fg_frac=fg,
+          seconds=seconds)
+
+
+def _golden_unwrap_net(fix):
+    """tests/test_torch_goldens.py's net: the fixture's SDF net, the
+    reference's diffuse and colour nets and env nets 2 and 7 (tracked)."""
+    import torch
+    from envidr_tpu_torch.io.jax_params import mlp_from_tree
+    from envidr_tpu_torch.io.torch_import import load_npz_env_nets, load_npz_mlps
+    from envidr_tpu_torch.models.network import NeRFNetwork, NetworkConfig
+
+    cfg = NetworkConfig(
+        encoding_pos="frequency", multires=6, env_sph_mode=True, num_env_nets=2,
+        in_roughness=1, in_metallic=1, in_base_color=3, num_layers=3, geo_feat_dim=12,
+        env_feat_dim=12, hidden_dim_env=160, roughness_act_scale=1.0,
+        geo_feat_act="unitNorm", env_feat_act="unitNorm", init_beta=0.1, sh_degree=4)
+    net = NeRFNetwork(cfg, generator=torch.Generator().manual_seed(0))
+    trees = load_npz_mlps(os.path.join(ROOT, "assets", "rendering_mlps.npz"),
+                          ("diffuse_net", "color_net"))
+    trees["sdf_net"] = [{"w": fix[f"sdf_net.{i}.w"].T, "b": fix[f"sdf_net.{i}.b"]}
+                        for i in range(3)]
+    trees["env_nets"] = load_npz_env_nets(os.path.join(ROOT, "assets", "env_nets.npz"), (2, 7))
+    for name, tree in trees.items():
+        setattr(net, name, mlp_from_tree(tree))
+    return net.cuda()
+
+
+def unwrap_phase():
+    """unwrap_env.npz on the card, then the CLI's 512x1024 unwrap of env 3."""
+    import numpy as np
+    import tempfile
+    from envidr_tpu_torch.apps import unwrap
+
+    fix = np.load(UNWRAP_GOLDEN)
+    net = _golden_unwrap_net(fix)
+    m = fix["material"]
+    material = {"roughness": float(m[0]), "metallic": float(m[1]), "color": np.asarray(m[2:5])}
+    errs = []
+    for ei, env in enumerate((2, 7)):
+        img = unwrap.unwrap_env(net, env_h=int(fix["env_h"]), env_w=int(fix["env_w"]),
+                                radius=0.95, material=material, env_index=ei)
+        errs.append(float(np.abs(img - fix[f"env{env}_image"]).max()))
+    if not max(errs) <= UNWRAP_ATOL:
+        raise AssertionError(f"unwrap: golden errors {errs} > {UNWRAP_ATOL}")
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        img = unwrap.main(["--config", SPHERE_INI, "--ckpt", PRETRAIN_CKPT, "--env-index", "3",
+                           "--size", "512", "1024", "--out", os.path.join(d, "env3.png")])
+        seconds = time.perf_counter() - t
+    if img.shape != (512, 1024, 3) or not np.isfinite(img).all() or img.std() < 1e-3:
+        raise AssertionError(f"unwrap: env 3 image {img.shape}, std {img.std()}")
+    phase("unwrap", golden_max_abs_err=repr(errs), atol=UNWRAP_ATOL,
+          checkpoint=os.path.relpath(PRETRAIN_CKPT, ROOT), env=3, size="512x1024",
+          mean=float(img.mean()), seconds_incl_load=seconds)
+
+
+def turntable_phase():
+    import numpy as np
+    import tempfile
+    from envidr_tpu_torch.apps import turntable
+
+    with tempfile.TemporaryDirectory() as d:
+        frames, secs = turntable.main(["--config", CP_INI, "--ckpt", CP_CKPT, "--n-frames",
+                                       str(TURNTABLE_FRAMES), "--size", str(TURNTABLE_SIZE),
+                                       "--env-rot",
+                                       "--out", d])
+        written = len(os.listdir(d))
+    change = float(np.abs(frames[0].astype(np.int16) - frames[4].astype(np.int16)).max())
+    if written != TURNTABLE_FRAMES or not change > 0:
+        raise AssertionError(f"turntable: {written} frames written, frame 0 vs 4 max change "
+                             f"{change}")
+    phase("turntable", frames=TURNTABLE_FRAMES, size=f"{TURNTABLE_SIZE}x{TURNTABLE_SIZE}",
+          env_rot=True,
+          ms_per_frame=1e3 * float(np.mean(secs[1:])), first_frame_ms=1e3 * secs[0],
+          frame0_vs_4_max_change=change)
+
+
+def viewer_phase():
+    import numpy as np
+    import threading
+    import urllib.request
+    from http.server import HTTPServer
+    from envidr_tpu_torch.apps.viewer import ViewerState, make_handler
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.png import decode
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(CP_INI)
+    trainer = Trainer(opt, network_config(opt))
+    trainer.load_checkpoint(CP_CKPT)
+    srv = HTTPServer(("127.0.0.1", 0), make_handler(ViewerState(trainer, opt, "scene")))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        t = time.perf_counter()
+        png = urllib.request.urlopen(base + "/render?size=256", timeout=120).read()
+        seconds = time.perf_counter() - t
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    img = decode(png)
+    if img.shape != (256, 256, 3) or img.std() == 0:
+        raise AssertionError(f"viewer: /render gave {img.shape}, std {img.std()}")
+    phase("viewer", port=srv.server_address[1], size="256x256", png_bytes=len(png),
+          seconds=seconds, mean=float(img.mean() / 255))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1658,6 +2061,16 @@ def main() -> int:
     render_pretrain(sphere_val, libs)
     train_renv(libs)
     render_renv(libs)
+    cli_phase()
+    hash_cli_launches = cli_hash_phase(libs)
+    mesh_phase()
+    demo_phase()
+    unwrap_phase()
+    turntable_phase()
+    viewer_phase()
+    for row in rows:
+        if row["name"] == "scatter_add_rows":
+            row["launches_by_path"]["cli_hash"] = hash_cli_launches
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

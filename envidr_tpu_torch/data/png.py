@@ -1,4 +1,5 @@
-"""A PNG decoder of the port's own: the standard library's ``zlib`` and numpy.
+"""A PNG decoder and writer of the port's own: the standard library's
+``zlib`` and numpy.
 
 The JAX package reads images through imageio or PIL
 (``envidr_tpu/data/nerf_dataset.py:_load_image``); the card machine has
@@ -15,6 +16,9 @@ at once from the diagonals before it: :func:`_unfilter` stores the image
 skewed (diagonal ``d`` is one column) and takes ``H + W - 1`` vector steps
 over all images of a batch and all channels, instead of ``H * W`` pixel
 steps.
+
+:func:`write_png` writes 8-bit images of colour type 0, 2, 4 or 6, every row
+with filter 0 (None): what the apps and the eval dumps write.
 """
 
 from __future__ import annotations
@@ -157,3 +161,34 @@ def read_pngs(paths: Sequence[str]) -> List[np.ndarray]:
             for i, img in zip(part, pixels):
                 out[i] = _as_image(img, ctype)
     return out
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode(img: np.ndarray, level: int = 6) -> bytes:
+    """uint8 [H, W] or [H, W, C] (C = 1, 2, 3 or 4) -> PNG bytes of colour
+    type 0, 4, 2 or 6."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise PNGError(f"write_png takes uint8 images, not {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.ndim != 3 or img.shape[-1] not in (1, 2, 3, 4):
+        raise PNGError(f"write_png takes [H, W] or [H, W, 1|2|3|4], not {img.shape}")
+    H, W, C = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[C]
+    rows = np.concatenate([np.zeros((H, 1), np.uint8),
+                           np.ascontiguousarray(img).reshape(H, W * C)], axis=1)
+    header = struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> str:
+    """Write ``img`` (as :func:`encode` takes it) to ``path``; returns the path."""
+    with open(path, "wb") as f:
+        f.write(encode(img))
+    return path

@@ -125,6 +125,12 @@ def module_tree(module: nn.Module, tensors) -> Any:
     return _lists(root)
 
 
+def network_tree(net: nn.Module) -> Dict[str, Any]:
+    """Every top-level module of ``net`` as its JAX-layout pytree of numpy
+    arrays (a checkpoint's ``params`` or ``ema``)."""
+    return {n: module_tree(m, list(m.parameters())) for n, m in net.named_children()}
+
+
 def _lists(node):
     """Dicts keyed 0..n-1 become lists (the CP encoder's ``axes``, ``proj``)."""
     if not isinstance(node, dict):

@@ -599,9 +599,12 @@ class NeRFNetwork(nn.Module):
         aux["blend"] = blend
         return torch.where(renv_mask[..., None], blended, c_env)
 
-    def get_color_mlp_extra_params(self, normals, dirs, roughness=0.0):
+    def get_color_mlp_extra_params(self, normals, dirs, roughness=0.0, env_rot_radian=None):
         """Normal encoding, IDE of the reflected direction, n.w_o and the
-        diffuse IDE of the normal (renderer.py:147-180)."""
+        diffuse IDE of the normal (renderer.py:147-180).  ``env_rot_radian``
+        (a number or a 0-dim tensor) turns the environment about the y axis:
+        the reflected direction and the diffuse normal are each multiplied by
+        :func:`rot_theta_mat` on the right, as the JAX package does."""
         cfg = self.cfg
         if normals is None:
             return None, None, None, None
@@ -613,6 +616,8 @@ class NeRFNetwork(nn.Module):
         w_r_enc = None
         if cfg.use_reflected_dir and not cfg.diffuse_only:
             w_r = reflect_dir(w_o, normals)
+            if env_rot_radian is not None:
+                w_r = w_r @ rot_theta_mat(env_rot_radian, w_r)
             w_r_enc = encode_dir(cfg.encoding_ref, cfg.multires_refdir, cfg.sh_degree,
                                  w_r, roughness) * cfg.light_intensity_scale
         n_dot_w_o = None
@@ -620,9 +625,21 @@ class NeRFNetwork(nn.Module):
             n_dot_w_o = (normals * w_o).sum(dim=-1, keepdim=True)
         n_env_enc = None
         if cfg.diffuse_with_env:
+            n_rot = normals if env_rot_radian is None else normals @ rot_theta_mat(
+                env_rot_radian, normals)
             n_env_enc = encode_dir(cfg.encoding_ref, cfg.multires_refdir, cfg.sh_degree,
-                                   normals, cfg.diffuse_kappa_inv) * cfg.light_intensity_scale
+                                   n_rot, cfg.diffuse_kappa_inv) * cfg.light_intensity_scale
         return normals_enc, w_r_enc, n_dot_w_o, n_env_enc
+
+
+def rot_theta_mat(radian, like: torch.Tensor) -> torch.Tensor:
+    """The [3, 3] rotation about the y axis of ``_rot_theta_mat``
+    (``network.py:696``), in ``like``'s dtype and on its device."""
+    r = torch.as_tensor(radian, dtype=like.dtype, device=like.device)
+    c, s = torch.cos(r), torch.sin(r)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, zero, -s]), torch.stack([zero, one, zero]),
+                        torch.stack([s, zero, c])])
 
 
 def material_tensor(material: dict, device) -> torch.Tensor:

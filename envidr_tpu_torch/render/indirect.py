@@ -45,11 +45,13 @@ def render_scene_indirect(net: NeRFNetwork, opts: SceneRenderOptions, iopts: Ind
                           obj_aabb: Optional[torch.Tensor] = None,
                           level_mask: Optional[torch.Tensor] = None,
                           normal_anneal_ratio: float = 1.0, cos_anneal_ratio: float = 1.0,
-                          beta_cap=None, beta_min=None) -> Dict[str, Any]:
+                          beta_cap=None, beta_min=None,
+                          env_rot_radian=None) -> Dict[str, Any]:
     """The three passes over N rays.  ``noise`` and ``strat_noise`` hold one
     draw per pass (as :func:`render_scene` takes them; pass 2's
     ``strat_noise`` is [N, iopts.indir_num_samples]); ``obj_aabb`` [6] keeps
-    the reflection of surface points outside it off.  Returns pass 3's
+    the reflection of surface points outside it off; ``env_rot_radian``
+    turns the environment of passes 2 and 3.  Returns pass 3's
     results with pass 1's ``normal_image`` and ``depth`` and the per-ray
     ``ref_mask``, ``ray_mask`` and ``r_images`` [N, 4]."""
     dt = 2.0 * SQRT3 / iopts.indir_max_steps
@@ -79,14 +81,15 @@ def render_scene_indirect(net: NeRFNetwork, opts: SceneRenderOptions, iopts: Ind
         num_samples=iopts.indir_num_samples, min_near=dt * 2.0, geometry_only=False,
         with_loss_aux=False, grad_ray=iopts.grad_rays, grad_rays_scale=iopts.grad_rays_scale)
     sec = render_scene(net, sec_opts, bitfield, ref_o, ref_d, 0.0, aabb, noise=noise[1],
-                       strat_noise=strat_noise[1], **shared)
+                       strat_noise=strat_noise[1], env_rot_radian=env_rot_radian, **shared)
     r_images = torch.cat([sec["image"], sec["weights_sum"][:, None]], dim=-1)
     r_images = torch.where(ref_mask[:, None], r_images, torch.zeros((), device=r_images.device))
 
     # pass 3: the main render, fed with the reflection image
     results = render_scene(net, dataclasses.replace(opts, geometry_only=False), bitfield,
                            rays_o, rays_d, bg_color, aabb, noise=noise[2],
-                           strat_noise=strat_noise[2], r_images=r_images, **shared)
+                           strat_noise=strat_noise[2], r_images=r_images,
+                           env_rot_radian=env_rot_radian, **shared)
     results.update(normal_image=normals, depth=depth, ref_mask=ref_mask, ray_mask=ray_mask,
                    r_images=r_images)
     return results

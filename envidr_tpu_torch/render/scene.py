@@ -57,14 +57,16 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
                  level_mask: Optional[torch.Tensor] = None,
                  normal_anneal_ratio: float = 1.0, cos_anneal_ratio: float = 1.0,
                  beta_cap=None, beta_min=None,
-                 r_images: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                 r_images: Optional[torch.Tensor] = None,
+                 env_rot_radian=None) -> Dict[str, Any]:
     """Render N rays.  ``noise`` [N] in [0, 1) perturbs the march start (used
     only when ``opts.perturb`` and not ``opts.stratified_sampling``);
     ``strat_noise`` [N, K] in [0, 1) jitters each sample by up to half a base
     step (used only when ``opts.training`` and ``opts.stratified_sampling``);
     ``bg_color`` is a scalar, [3] or [N, 3]; ``cos_anneal_ratio`` is NeuS's
     (1 at eval); ``beta_cap`` (a tensor) bounds the Laplace beta from above;
-    ``r_images`` [N, C] is each ray's reflection image (C = 3 or 4)."""
+    ``r_images`` [N, C] is each ray's reflection image (C = 3 or 4);
+    ``env_rot_radian`` turns the environment about the y axis."""
     cfg = net.cfg
     N, K = rays_o.shape[0], opts.num_samples
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)
@@ -138,7 +140,7 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
         return results
 
     normals_enc, w_r_enc, n_dot_w_o, n_env_enc = net.get_color_mlp_extra_params(
-        normals, dirs, roughness)
+        normals, dirs, roughness, env_rot_radian)
     r_in = None if r_images is None else r_images[:, None, :].expand(N, K, r_images.shape[-1])
     rgbs, aux = net.forward_color(geo["geo_feat"], dirs, normals_enc, w_r_enc,
                                   n_dot_w_o, n_env_enc=n_env_enc, r_images=r_in,

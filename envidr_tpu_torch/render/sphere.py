@@ -39,13 +39,14 @@ def render_sphere(net: NeRFNetwork, opts: SphereRenderOptions, rays_o: torch.Ten
                   r_images: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None,
                   level_mask: Optional[torch.Tensor] = None,
-                  normal_anneal_ratio: float = 1.0) -> Dict[str, Any]:
+                  normal_anneal_ratio: float = 1.0, env_rot_radian=None) -> Dict[str, Any]:
     """Render N rays of the sphere.  ``bg_color`` is a scalar, [3] or
     [N, 3]; ``material`` a dict or a tensor [5] (roughness, metallic,
     colour); ``env_index`` an int or a 0-dim device tensor; ``r_images``
     [N, C] each ray's mirror-sphere colour (``train_renv``); ``noise``
     [N, num_step] in [0, 1) jitters the samples by up to half a step (used
-    only with ``opts.perturb``).  The depth is normalised by the largest
+    only with ``opts.perturb``); ``env_rot_radian`` turns the environment
+    about the y axis.  The depth is normalised by the largest
     far distance of the batch, as the JAX package normalises it."""
     cfg = net.cfg
     N, S = rays_o.shape[0], opts.num_step
@@ -80,7 +81,7 @@ def render_sphere(net: NeRFNetwork, opts: SphereRenderOptions, rays_o: torch.Ten
                                                    normals=normals)
 
     normals_enc, w_r_enc, n_dot_w_o, n_env_enc = net.get_color_mlp_extra_params(
-        normals, dirs_b, roughness)
+        normals, dirs_b, roughness, env_rot_radian)
     if normals_enc is not None and not opts.training:
         normals_enc = normals_enc.detach()
     r_in = None if r_images is None else r_images[:, None, :].expand(N, S, r_images.shape[-1])

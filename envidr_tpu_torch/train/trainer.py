@@ -34,7 +34,12 @@ pretrain on the env-sphere set, ``render/sphere.py``; no grid):
     (``:469-490, :760-794``);
   * cells no training camera sees marked untrained
     (:meth:`Trainer.mark_untrained_grid`, ``:306-310``);
-  * :meth:`Trainer.evaluate` (PSNR and SSIM over a split, ``:817-904``);
+  * the epoch loop (:meth:`Trainer.train_one_epoch`, ``:580-680``), which
+    reads its steps' metrics back once, at the epoch's end, and the ad-hoc
+    steps of the viewer (:meth:`Trainer.train_one_epoch_steps`, ``:949-990``);
+  * :meth:`Trainer.evaluate` (PSNR and SSIM over a split, an env-rotation
+    sweep and image dumps, ``:817-932``);
+  * env rotation in the eval render (``env_rot_radian``, ``:683-713``);
   * the diffuse term alone before ``color_net_start_iter`` (``:337-338``);
   * sphere mode: each step conditioned on its frame's material and env
     index, read from one device tensor of the dataset, and, with
@@ -46,13 +51,15 @@ pretrain on the env-sphere set, ``render/sphere.py``; no grid):
 A step does not block the host: the finite check, the counters and the
 mean-count EMA stay on the device, and the host reads the EMA once, when an
 epoch chooses its K.  Only the grid refresh may synchronise.  A sphere-mode
-step has neither, and never synchronises.
+step has neither, and never synchronises.  An epoch of
+:meth:`Trainer.train_one_epoch` adds one read, of its averaged metrics.
 
 :meth:`Trainer.load_checkpoint` reads the JAX package's checkpoints (a
 pickle of numpy arrays and optax's state tuples, read through an allow-list
 of stand-ins; nothing else is unpickled) and resumes as the JAX trainer does
 (``:1048-1103``): with the file's optimizer state, or else with the lr
-schedule re-timed to the restored step.  :meth:`Trainer.save_checkpoint`
+schedule re-timed to the restored step; ``latest`` and ``best`` name the
+workspace's own checkpoints.  :meth:`Trainer.save_checkpoint`
 writes the JAX package's keys as plain numpy pytrees, which its
 ``load_checkpoint`` reads, and the port's optimizer state under a key of its
 own (``torch_optimizer``).
@@ -68,6 +75,7 @@ import copy
 import importlib
 import os
 import pickle
+import time
 import warnings
 from typing import Any, Dict, Optional
 
@@ -76,12 +84,13 @@ import torch
 
 from envidr_tpu_torch import resolve_device
 from envidr_tpu_torch.config import Options
+from envidr_tpu_torch.data.png import write_png
 from envidr_tpu_torch.geometry.rays import (
     error_map_rays, full_image_rays, linear_to_srgb, sampled_rays, srgb_to_linear,
 )
 from envidr_tpu_torch.io import torch_import
 from envidr_tpu_torch.io.jax_params import (
-    load_jax_params, merge_leaves, merge_mlp, mlp_from_tree, module_arrays, module_tree,
+    load_jax_params, merge_leaves, merge_mlp, mlp_from_tree, module_arrays, network_tree,
 )
 from envidr_tpu_torch.models.network import NeRFNetwork, NetworkConfig
 from envidr_tpu_torch.ops import density as density_ops
@@ -94,6 +103,9 @@ from envidr_tpu_torch.render.sphere import SphereRenderOptions, render_sphere
 from envidr_tpu_torch.train.losses import compute_losses
 from envidr_tpu_torch.train.metrics import PSNRMeter, SSIMMeter
 from envidr_tpu_torch.train.schedules import StepSchedule, level_mask, resolve
+
+VISUALS = (("diffuse_image", "diffuse"), ("specular_image", "specular"),
+           ("roughness_image", "roughness"))
 
 # parameter group of each top-level module (network.py:772-819); the rest is "net"
 _GROUP_OF = {"encoder": "grid", "sdf_density": "scalar", "env_net": "env", "env_nets": "env"}
@@ -321,6 +333,7 @@ class Trainer:
         # running mean of samples per ray (< 0: none yet), f64 on the device
         # so that it equals the reference's host EMA in Python floats
         self.mean_count = torch.full((), -1.0, dtype=torch.float64, device=self.device)
+        self.host_mean_count = -1.0      # its value at the last epoch's end
         self._sched: Optional[StepSchedule] = None
         self._K = 0
         self._order: list = []
@@ -404,7 +417,10 @@ class Trainer:
 
     def update_extra_state(self, full: bool = False):
         """Refresh the occupancy grid: whole-grid sweeps for the first 16
-        updates (or ``full``), a rotating quarter slab afterwards."""
+        updates (or ``full``), a rotating quarter slab afterwards.  Sphere
+        mode has no grid."""
+        if not self.use_grid:
+            return
         lm = (level_mask(self._sched.enabled_levels, self.cfg.num_levels, self.device)
               if self._sched is not None else None)
         net = self.net
@@ -421,8 +437,9 @@ class Trainer:
     def mark_untrained_grid(self, poses, intrinsics):
         """Mark the grid cells that no camera of ``poses`` [B, 4, 4] sees as
         untrained (``trainer.py:306-310``); the JAX CLI calls it before scene
-        training."""
-        self.grid = mark_untrained(self.grid, self.grid_spec, poses, intrinsics)
+        training; sphere mode has no grid."""
+        if self.use_grid:
+            self.grid = mark_untrained(self.grid, self.grid_spec, poses, intrinsics)
 
     def train_geometric_cue(self, steps: int = 500, points: int = 131072,
                             radius: Optional[float] = None, *, given_points=None):
@@ -456,13 +473,15 @@ class Trainer:
 
     # ---------------------------------------------------------- budgets
 
-    def sample_budget(self, sched: StepSchedule) -> int:
-        """Per-ray sample budget K from the running mean sample count."""
+    def sample_budget(self, sched: StepSchedule, mean_count: Optional[float] = None) -> int:
+        """Per-ray sample budget K from the running mean sample count (read
+        from the device unless given)."""
         if self.opt.samples_budget > 0:
             return self.opt.samples_budget
         cap = sched.early_stop_steps if sched.early_stop_steps > 0 \
             else min(sched.max_steps, 1024)
-        mean_count = float(self.mean_count)              # the epoch's one read
+        if mean_count is None:
+            mean_count = float(self.mean_count)          # the epoch's one read
         est = cap if mean_count <= 0 else int(mean_count * 1.5) + 8
         # floor: a hard-pruned grid must not starve the thin surface shell
         floor = min(max(16, self.opt.min_samples_budget), max(cap, 16))
@@ -491,21 +510,68 @@ class Trainer:
 
     def _next_index(self, dataset) -> int:
         if not self._order:
-            self.epoch += 1
-            self._sched = resolve(self.opt, self.epoch, self.global_step)
-            if self._beta_capped():
-                # project the learned Laplace beta under the epoch's cap
-                # (trainer.py:585-593); no host sync
-                with torch.no_grad():
-                    self.net.sdf_density.beta.clamp_(max=self._sched.weights["_beta_cap"])
-            if self.opt.error_map and self.error_map is None:
-                # sized by the dataset (provider.py:277-281), 0.1 everywhere
-                self.error_map = torch.full((len(dataset), ERROR_MAP_CELLS), 0.1,
-                                            device=self.device)
-            self._K = self.sample_budget(self._sched) if self.use_grid else 0
-            rng = np.random.default_rng(self.opt.seed * 100003 + self.epoch)
-            self._order = list(dataset.epoch_order(rng))
+            self._start_epoch(dataset)
         return int(self._order.pop(0))
+
+    def _start_epoch(self, dataset):
+        """The next epoch's schedule, beta cap, error map, K and shuffled
+        order (``trainer.py:580-602``)."""
+        self.epoch += 1
+        self._sched = resolve(self.opt, self.epoch, self.global_step)
+        if self._beta_capped():
+            # project the learned Laplace beta under the epoch's cap
+            # (trainer.py:585-593); no host sync
+            with torch.no_grad():
+                self.net.sdf_density.beta.clamp_(max=self._sched.weights["_beta_cap"])
+        self._ensure_error_map(dataset)
+        self._K = self.sample_budget(self._sched) if self.use_grid else 0
+        rng = np.random.default_rng(self.opt.seed * 100003 + self.epoch)
+        self._order = list(dataset.epoch_order(rng))
+
+    def _ensure_error_map(self, dataset):
+        if self.opt.error_map and self.error_map is None:
+            # sized by the dataset (provider.py:277-281), 0.1 everywhere
+            self.error_map = torch.full((len(dataset), ERROR_MAP_CELLS), 0.1,
+                                        device=self.device)
+
+    def train_one_epoch(self, dataset) -> Dict[str, float]:
+        """One epoch (``trainer.py:580-680``): the next epoch's shuffled order,
+        the whole of it, through :meth:`train_step` (a partial epoch's
+        leftover is dropped first; the first step starts the epoch, as
+        :meth:`step_may_sync` expects).  Returns the average of each step
+        metric, ``notfinite`` at the epoch's end, ``time`` (seconds) and
+        ``rays_per_sec`` (rays of the epoch over ``time``), and appends the
+        mean loss to ``stats["loss"]``.  The steps' metrics stay on the
+        device; the host reads them, with the mean-count EMA, once, at the
+        end (:attr:`host_mean_count` keeps that reading)."""
+        t0 = time.time()
+        self._order = []
+        steps = [self.train_step(dataset)]
+        steps += [self.train_step(dataset) for _ in range(len(self._order))]
+        n = len(steps)
+        keys = [k for k, v in steps[0].items() if torch.is_tensor(v) and k != "notfinite"]
+        means = torch.stack([torch.stack([m[k].double() for k in keys]) for m in steps]).mean(0)
+        read = torch.cat([means, self.notfinite.double()[None],
+                          torch.as_tensor(self.mean_count, dtype=torch.float64)[None]]).tolist()
+        avg = dict(zip(keys, read[:len(keys)]))
+        avg["notfinite"] = read[len(keys)]
+        self.host_mean_count = read[-1]
+        avg["time"] = time.time() - t0
+        avg["rays_per_sec"] = self._sched.num_rays * n / avg["time"]
+        self.stats["loss"].append(avg["loss"])
+        return avg
+
+    def train_one_epoch_steps(self, dataset, n_steps: int) -> Dict[str, float]:
+        """``n_steps`` ad-hoc steps on the frames ``0, 1, ...`` of
+        ``dataset`` (the viewer's train-per-frame loop, ``trainer.py:949-990``)
+        under the schedule of ``max(epoch, 1)``; the epoch and its order are
+        left as they were.  Returns the last loss and the step count."""
+        self._sched = resolve(self.opt, max(self.epoch, 1), self.global_step)
+        self._ensure_error_map(dataset)
+        self._K = self.sample_budget(self._sched) if self.use_grid else 0
+        for i in range(n_steps):
+            m = self._train_on(dataset, i % len(dataset))
+        return {"loss": float(m["loss"]), "steps": n_steps}
 
     def _refreshes_grid(self) -> bool:
         every = self._sched.update_extra_interval
@@ -636,7 +702,9 @@ class Trainer:
         (a benchmark times the steps alone, as ``bench.py`` does).  In sphere
         mode the frame's material, env index and mirror-sphere image
         condition the render."""
-        idx = self._next_index(dataset)
+        return self._train_on(dataset, self._next_index(dataset), refresh_grid)
+
+    def _train_on(self, dataset, idx: int, refresh_grid: bool = True) -> Dict[str, object]:
         sched, opt = self._sched, self.opt
         if refresh_grid and self._refreshes_grid():
             self.update_extra_state()
@@ -720,7 +788,8 @@ class Trainer:
 
     def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor, *, use_ema: bool = True,
                     bg_color: float = 1.0, material=None, env_index=0,
-                    r_images: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                    r_images: Optional[torch.Tensor] = None,
+                    env_rot_radian=None) -> Dict[str, torch.Tensor]:
         """Render rays [N, 3] in chunks of ``eval_ray_chunk`` (no gradient):
         in scene mode through the grid (a model with the renv branch that
         trains the indirect pass renders through the three passes,
@@ -728,7 +797,8 @@ class Trainer:
         ``env_index`` and, where given, each ray's mirror-sphere colour
         ``r_images`` [N, C] (linear; the JAX eval passes none, so that the
         specular colour of a ``train_renv`` model then comes from the env
-        branch, ``network.py:588-592``)."""
+        branch, ``network.py:588-592``); ``env_rot_radian`` turns the
+        environment about the y axis."""
         net = self.ema_net if use_ema else self.net
         opt = self.opt
         chunk = opt.eval_ray_chunk or 4096
@@ -746,15 +816,17 @@ class Trainer:
                 if indirect:
                     return render_scene_indirect(net, ropts, self.indirect_options(0),
                                                  self.grid.bitfield, o, d, bg_color,
-                                                 self.eval_aabb, obj_aabb=self.obj_aabb)
+                                                 self.eval_aabb, obj_aabb=self.obj_aabb,
+                                                 env_rot_radian=env_rot_radian)
                 return render_scene(net, ropts, self.grid.bitfield, o, d, bg_color,
-                                    self.eval_aabb)
+                                    self.eval_aabb, env_rot_radian=env_rot_radian)
         else:
             sopts = self.sphere_options()
 
             def render(o, d, r):
                 return render_sphere(net, sopts, o, d, bg_color, material=material,
-                                     env_index=env_index, r_images=r)
+                                     env_index=env_index, r_images=r,
+                                     env_rot_radian=env_rot_radian)
         parts: Dict[str, list] = {}
         with torch.no_grad():
             for s in range(0, rays_o.shape[0], chunk):
@@ -767,7 +839,7 @@ class Trainer:
 
     def render_image(self, pose, intrinsics, H: int, W: int, *, use_ema: bool = True,
                      bg_color: float = 1.0, material=None, env_index=0,
-                     r_image=None) -> Dict[str, np.ndarray]:
+                     r_image=None, env_rot_radian=None) -> Dict[str, np.ndarray]:
         """:meth:`render_rays` of every pixel of a view, as numpy [H, W, ...];
         ``r_image`` uint8 [H, W, C] is the view's mirror-sphere image (sphere
         mode), linearised as a train step linearises it."""
@@ -778,24 +850,41 @@ class Trainer:
             r = self._pixels(torch.as_tensor(np.asarray(r_image), device=self.device)
                              .reshape(H * W, -1))
         res = self.render_rays(rays_o[0], rays_d[0], use_ema=use_ema, bg_color=bg_color,
-                               material=material, env_index=env_index, r_images=r)
+                               material=material, env_index=env_index, r_images=r,
+                               env_rot_radian=env_rot_radian)
         return {k: v.reshape((H, W) + v.shape[1:]).cpu().numpy() for k, v in res.items()}
 
     def evaluate(self, dataset, *, max_images: int = 8, use_ema: bool = True,
-                 track_best: bool = True, indices=None) -> float:
+                 track_best: bool = True, indices=None, env_rot_degree_range=None,
+                 dump_dir: Optional[str] = None) -> float:
         """PSNR and SSIM of the renders of a split's first ``max_images``
         views (or of ``indices``) against its images, on the test-time
-        background (``trainer.py:817-904``; LPIPS is not ported yet).  The
-        results join ``stats["results"]``; with ``track_best`` a new best PSNR
-        saves the ``best`` checkpoint (without optimizer state).  Returns the
-        mean PSNR."""
+        background (``trainer.py:817-904``; LPIPS is not ported yet).  A
+        split without images (a colmap test path) is rendered, not scored,
+        and tracks no best.  ``env_rot_degree_range`` ``(d0, d1, k)`` renders
+        each view again at ``k`` env rotations (not scored); ``dump_dir``
+        receives each render's images (:meth:`_dump_visuals`).  The results
+        join ``stats["results"]``; with ``track_best`` a new best PSNR saves
+        the ``best`` checkpoint (without optimizer state).  Returns the mean
+        PSNR."""
         psnr_meter, ssim_meter = PSNRMeter(), SSIMMeter()
         idxs = list(indices) if indices else list(range(min(len(dataset), max_images)))
+        has_gt = getattr(dataset, "images", None) is not None
+        track_best = track_best and has_gt
+        rots = [None]
+        if env_rot_degree_range:
+            d0, d1, k = env_rot_degree_range
+            rots = list(np.deg2rad(np.linspace(d0, d1, int(k))))
         for i in idxs:
-            pred, gt = eval_pair(self.render_view(dataset, i, use_ema=use_ema), dataset, i,
-                                 self.opt)
-            psnr_meter.update(pred, gt)
-            ssim_meter.update(pred, gt)
+            for ri, rot in enumerate(rots):
+                res = self.render_view(dataset, i, use_ema=use_ema, env_rot_radian=rot)
+                if rot is None and has_gt:
+                    pred, gt = eval_pair(res, dataset, i, self.opt)
+                    psnr_meter.update(pred, gt)
+                    ssim_meter.update(pred, gt)
+                if dump_dir is not None:
+                    self._dump_visuals(res, srgb_image(res, self.opt), dump_dir,
+                                       f"{i:03d}" + (f"_rot{ri}" if rot is not None else ""))
         psnr = psnr_meter.measure()
         self.stats["results"].append({"psnr": psnr, "ssim": ssim_meter.measure(),
                                       "lpips": None, "lpips_kind": None, "epoch": self.epoch})
@@ -806,13 +895,33 @@ class Trainer:
             self.save_checkpoint(name="best", full=False)
         return psnr
 
+    def _dump_visuals(self, res: Dict[str, np.ndarray], pred_srgb: np.ndarray, outdir: str,
+                      tag: str):
+        """The render's images as PNGs (``trainer.py:905-930``): ``{tag}_rgb``,
+        ``{tag}_normal`` and the ``visual_items`` of diffuse, specular and
+        roughness.  Every file is a PNG: the port has no JPEG or EXR writer
+        (JAX's ``img_format=jpg`` writes ``.jpg``)."""
+        os.makedirs(outdir, exist_ok=True)
+        write_png(os.path.join(outdir, f"{tag}_rgb.png"), to_uint8(pred_srgb))
+        if "normal_image" in res:
+            write_png(os.path.join(outdir, f"{tag}_normal.png"),
+                      to_uint8(res["normal_image"] * 0.5 + 0.5))
+        items = set(self.opt.visual_items)
+        for key, name in VISUALS:
+            if name in items and key in res:
+                v = res[key]
+                if v.shape[-1] == 1:
+                    v = np.repeat(v, 3, -1) / max(float(v.max()), 1e-6)
+                write_png(os.path.join(outdir, f"{tag}_{name}.png"), to_uint8(v))
+
     def render_view(self, dataset, i: int, *, use_ema: bool = True,
-                    with_r_image: bool = False) -> Dict[str, np.ndarray]:
+                    with_r_image: bool = False, env_rot_radian=None) -> Dict[str, np.ndarray]:
         """:meth:`render_image` of a split's view ``i`` on the test-time
         background; in sphere mode with the view's material (the unwrap
         material under ``overwrite_materials``) and env index (or
         ``set_env_net_index`` when it is above 0), and with ``with_r_image``
-        its mirror-sphere image (``trainer.py:817-866``)."""
+        its mirror-sphere image (``trainer.py:817-866``); ``env_rot_radian``
+        turns the environment."""
         kw = {}
         if not self.use_grid:
             opt = self.opt
@@ -826,7 +935,8 @@ class Trainer:
             kw = dict(material=material, env_index=env_index,
                       r_image=dataset.r_images[i] if with_r_image else None)
         return self.render_image(dataset.poses[i], dataset.intrinsics, dataset.H, dataset.W,
-                                 use_ema=use_ema, bg_color=eval_bg(self.opt), **kw)
+                                 use_ema=use_ema, bg_color=eval_bg(self.opt),
+                                 env_rot_radian=env_rot_radian, **kw)
 
     # ------------------------------------------------------ checkpoints
 
@@ -842,15 +952,11 @@ class Trainer:
         ``checkpoints/`` (a resumed ``stats["ckpts"]`` names the files of the
         run that wrote it).  Returns the path."""
         name = name or f"ep{self.epoch:04d}"
-
-        def tree(net):
-            return {n: module_tree(m, list(m.parameters())) for n, m in net.named_children()}
-
         g = self.grid
         payload = {
             "epoch": self.epoch, "global_step": self.global_step, "iters": self.opt.iters,
             "mean_count": float(self.mean_count), "stats": copy.deepcopy(self.stats),
-            "params": tree(self.net), "ema": tree(self.ema_net),
+            "params": network_tree(self.net), "ema": network_tree(self.ema_net),
             "grid": (g.density.cpu().numpy(), g.bitfield.cpu().numpy(),
                      g.mean_density.cpu().numpy(), np.asarray(g.iter_density, np.int32)),
         }
@@ -872,21 +978,44 @@ class Trainer:
                     os.remove(old)
         return path
 
-    def load_checkpoint(self, path: str):
+    def find_checkpoint(self, which: Optional[str] = None) -> Optional[str]:
+        """The path ``which`` names (``trainer.py:1048-1062``): ``None`` or
+        ``latest`` the last, by name, of the workspace's ``checkpoints/``,
+        ``ep*`` files before ``emergency_*`` dumps; ``best`` its
+        ``best.ckpt`` where there is one (else as ``latest``); any other
+        value is a path.  None when the directory holds no checkpoint."""
+        if which not in (None, "latest", "best"):
+            return which
+        directory = os.path.join(self.workspace, "checkpoints")
+        cands = sorted(os.listdir(directory)) if os.path.isdir(directory) else []
+        if which == "best" and "best.ckpt" in cands:
+            cands = ["best.ckpt"]
+        else:
+            cands = [c for c in cands if c.startswith("ep")] or cands
+        return os.path.join(directory, cands[-1]) if cands else None
+
+    def load_checkpoint(self, path: Optional[str] = None) -> bool:
         """Read a checkpoint of the JAX package or of :meth:`save_checkpoint`
-        and resume as ``Trainer.load_checkpoint`` there does
-        (``trainer.py:1048-1103``): ``epoch``, ``global_step``,
+        (``path`` as :meth:`find_checkpoint` reads it; with none found, warn,
+        keep the fresh state and return False) and resume as
+        ``Trainer.load_checkpoint`` there does (``trainer.py:1048-1103``):
+        ``epoch``, ``global_step``,
         ``mean_count``, ``stats``, ``params``, ``ema``, ``grid`` and
         ``error_map``; the optimizer from the file's state (the port's own,
         or JAX's ``opt_state``: the Adam moments group by group and both
         counts); a file without one re-times the lr schedule to
         ``global_step``, with fresh moments, so that the first resumed step
-        takes the decayed lr and not the base lr."""
+        takes the decayed lr and not the base lr.  Returns True."""
+        path = self.find_checkpoint(path)
+        if path is None:
+            warnings.warn(f"no checkpoint in {self.workspace}/checkpoints; starting fresh")
+            return False
         payload = read_checkpoint(path)
         self.epoch = int(payload["epoch"])
         self.global_step = int(payload["global_step"])
-        self.mean_count = torch.tensor(float(payload.get("mean_count", -1.0)),
-                                       dtype=torch.float64, device=self.device)
+        self.host_mean_count = float(payload.get("mean_count", -1.0))
+        self.mean_count = torch.tensor(self.host_mean_count, dtype=torch.float64,
+                                       device=self.device)
         self.stats = payload.get("stats", self.stats)
         load_jax_params(self.net, payload["params"])
         load_jax_params(self.ema_net, payload["ema"])
@@ -923,15 +1052,26 @@ def eval_bg(opt: Options) -> float:
     return 1.0 if opt.render_bg_color == "white" else 0.0
 
 
-def eval_pair(res: Dict[str, np.ndarray], dataset, i: int, opt: Options):
-    """(render, ground truth) of view ``i`` as ``Trainer.evaluate`` compares
-    them, from ``res`` of :meth:`Trainer.render_view`: the render in sRGB
-    (from linear radiance under ``color_space=linear``) clipped to [0, 1],
-    the image composited on the test-time background."""
-    bg = eval_bg(opt)
+def srgb_image(res: Dict[str, np.ndarray], opt: Options) -> np.ndarray:
+    """A render's image in sRGB (from linear radiance under
+    ``color_space=linear``), not clipped."""
     pred = res["image"]
     if opt.color_space == "linear":
         pred = linear_to_srgb(torch.from_numpy(pred)).numpy()
+    return pred
+
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    """[0, 1] floats as uint8, clipped and truncated, as the JAX apps write them."""
+    return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def eval_pair(res: Dict[str, np.ndarray], dataset, i: int, opt: Options):
+    """(render, ground truth) of view ``i`` as ``Trainer.evaluate`` compares
+    them, from ``res`` of :meth:`Trainer.render_view`: the render in sRGB
+    clipped to [0, 1], the image composited on the test-time background."""
+    bg = eval_bg(opt)
+    pred = srgb_image(res, opt)
     gt = dataset.images[i].astype(np.float32) / 255.0
     if gt.shape[-1] == 4:
         gt = gt[..., :3] * gt[..., 3:] + bg * (1.0 - gt[..., 3:])
