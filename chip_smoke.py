@@ -159,6 +159,33 @@ seconds:
   viewer   apps/viewer.py's HTTP server on an ephemeral localhost port in a
            thread: one GET /render at 256 must return a PNG that the port's
            decoder reads
+  volsdf_parity  one VolSDF error-bound step of configs/synth_spheres_cp_laplace.ini
+           cut small (error_bound_sample, num_steps VOLSDF_PARITY_STEPS, the
+           SDF fitted to a sphere, the draws made on the CPU) on the card
+           against the CPU, per tensor: the CP encoder in f32 under
+           PARITY_RTOL, in bf16 under CP_BF16_RTOL
+  train_volsdf  synth_spheres_cp_laplace.ini with error_bound_sample at full
+           width (CP 16 x 32, SDF and colour 3x64, env net 64, 4096 rays,
+           num_steps 512: 4 rounds to 2560 samples a ray, 50 kept): 10 steps
+           after the grid refresh, the sync-free ones under sync debug mode
+           "error"; ms a step, the sampler's share of it (CUDA events around
+           each call), peak GiB, samples a ray; no march in a step
+  train_volsdf_hash  synth_spheres.ini (rolled_tiled hash grid) with
+           HASH_KERNEL_PATH and error_bound_sample: 10 steps; counts zeroed
+           just before and read just after, scatter_add_rows must launch
+  split_env  scenes/synth_spheres_ours.ini with split_diffuse_env (the
+           pretrain's colour MLPs frozen): 5 steps, then
+           swap_env_net(env_net_5.pth, split_diffuse=True): the diffuse env
+           net must equal the old env net and the env net the file's, in the
+           net and the EMA net; val view 0 at 400x400 before and after
+  options  synth_spheres_cp.ini at full width with each of OPTIONS (patch
+           and centre-crop sampling, image batches, growing march steps, the
+           background net, numerical normals, the geometric init, the
+           roughness head): 5 steps each, ms a step and the losses finite
+  sphere_mode_render  neural_renderer_cp.ini's widths with render_env_on_sphere
+           (one env net, the material inputs; seeded weights: no tracked
+           checkpoint has that network) through apps/viewer.py's frame at
+           400x400, ms a frame
 
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the exit code
@@ -168,6 +195,7 @@ is non-zero; without a CUDA card it exits non-zero before printing anything.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -278,6 +306,18 @@ SPHERE_PARITY_CUT = dict(num_levels=4, desired_resolution=64, cp_rank=8, hidden_
 # rays and 2.2e-2 at 256 (tests/sphere_readings.py), so at 256 the noise
 # alone passes CP_BF16_RTOL (f32: 9.0e-5 and 1.1e-4)
 SPHERE_PARITY_RAYS = 64
+VOLSDF_INI = os.path.join(ROOT, "configs", "synth_spheres_cp_laplace.ini")
+VOLSDF_STEPS = 10
+VOLSDF_PARITY_STEPS = 32           # num_steps of the small step: 160 samples after 4 rounds
+VOLSDF_PARITY_RAYS = 128
+SPLIT_STEPS = OPTION_STEPS = 5
+# the runtime options that no shipped config sets, each on synth_spheres_cp.ini
+OPTIONS = {"patch_size": dict(patch_size=8), "center_crop": dict(center_crop=0.5),
+           "image_batch": dict(image_batch=4), "dt_gamma": dict(dt_gamma=1.0 / 128),
+           "bg_radius": dict(bg_radius=2.0), "numerical_normals": dict(numerical_normals=True),
+           "geometric_init": dict(geometric_init=True),
+           "roughness_layer": dict(ensemble_mlp=False)}
+SPHERE_MODE_FRAMES, SPHERE_MODE_SIZE = 2, 400
 
 
 def phase(name: str, *words, **numbers):
@@ -796,6 +836,13 @@ def render_cp(libs):
 
 def _launches(libs) -> str:
     return repr(" ".join(f"{k}:{lib.launches}" for k, lib in libs.items()))
+
+
+def _assert_no_launches(libs, name: str):
+    """A path that runs no kernel: every count is still 0 since it was set."""
+    launched = {k: lib.launches for k, lib in libs.items() if lib.launches}
+    if launched:
+        raise AssertionError(f"{name}: kernels launched on a path that runs none: {launched}")
 
 
 def _val_view_psnr(val, img) -> float:
@@ -1926,6 +1973,290 @@ def viewer_phase():
           seconds=seconds, mean=float(img.mean() / 255))
 
 
+@functools.lru_cache(maxsize=None)
+def _volsdf_fitted_state():
+    """The small VolSDF model's parameters, its SDF fitted to the sphere on
+    the CPU (one fit for the four steps of volsdf_parity)."""
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.models.network import NeRFNetwork
+    from envidr_tpu_torch.render.sphere_probe import fit_sphere_sdf
+
+    opt = load_options(VOLSDF_INI, error_bound_sample=True, num_steps=VOLSDF_PARITY_STEPS,
+                       **CP_PARITY_CUT, hidden_dim_color=16, hidden_dim_env=16)
+    net = NeRFNetwork(network_config(opt), generator=torch.Generator().manual_seed(0))
+    fit_sphere_sdf(net, 3)
+    return opt, {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+
+def _volsdf_parity_step(device: str, cp_dtype: str):
+    """One VolSDF step of the small model (encoder in ``cp_dtype``) on
+    VOLSDF_PARITY_RAYS rays, the sampler's draws made on the CPU: loss,
+    image and gradients as f64 CPU tensors, and the samples a ray."""
+    import torch
+    from envidr_tpu_torch.config import network_config
+    from envidr_tpu_torch.models.network import NeRFNetwork
+    from envidr_tpu_torch.train.schedules import resolve
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt, state = _volsdf_fitted_state()
+    cfg = network_config(opt)
+    net = NeRFNetwork(cfg)
+    net.load_state_dict(state)
+    net.cp_spec = dataclasses.replace(net.cp_spec, compute_dtype=cp_dtype)
+    n = VOLSDF_PARITY_RAYS
+    gen = torch.Generator().manual_seed(3)
+    rays_o = torch.randn(n, 3, generator=gen) * 0.1 + torch.tensor([0.0, 0.0, 2.5])
+    target = torch.rand(n, 3, generator=gen) * 0.6 - 0.3
+    rays_d = torch.nn.functional.normalize(target - rays_o, dim=-1)
+    gt = torch.rand(n, 3, generator=gen)
+    alpha = (torch.rand(n, generator=gen) > 0.5).float()
+    tr = Trainer(opt, cfg, device=device, net=net)
+    vopts = tr.volsdf_options()
+    draws = dict(noise=torch.rand((n, vopts.num_steps), generator=gen),
+                 u=torch.rand((n, vopts.upsample_steps), generator=gen),
+                 perm=torch.randperm(vopts.num_steps * (1 + vopts.grow_iters), generator=gen))
+    args = [t.to(device) for t in (rays_o, rays_d, gt, torch.ones(n, 3), alpha)]
+    loss, out, _ = tr.forward_loss(*args, K=0, sched=resolve(opt, 1, 0),
+                                   volsdf_draws={k: v.to(device) for k, v in draws.items()})
+    loss.backward()
+    return {"loss": loss.detach().double().cpu().reshape(1),
+            "image": out["image"].detach().double().cpu(),
+            **{n: p.grad.detach().double().cpu() for n, p in tr.net.named_parameters()}}, \
+        out["sigmas"].shape[1]
+
+
+def check_volsdf_parity():
+    """The VolSDF step on the card against the CPU, per tensor, max |a - b| /
+    max |b|: the encoder in f32 under PARITY_RTOL, in bf16 under
+    CP_BF16_RTOL."""
+    result = {}
+    for cp_dtype, tol in (("float32", PARITY_RTOL), ("bfloat16", CP_BF16_RTOL)):
+        cpu, samples = _volsdf_parity_step("cpu", cp_dtype)
+        card, _ = _volsdf_parity_step("cuda", cp_dtype)
+        rel = {n: float((card[n] - cpu[n]).abs().max()) / max(float(cpu[n].abs().max()), 1e-30)
+               for n in cpu}
+        phase("volsdf_parity", f"card_vs_cpu_{cp_dtype}", json.dumps(rel))
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= tol:
+            raise AssertionError(f"VolSDF step ({cp_dtype} encoder): card and CPU disagree "
+                                 f"on {worst}: {rel[worst]} > {tol}")
+        result.update({f"{cp_dtype}_max_rel_err": rel[worst], f"{cp_dtype}_worst": worst,
+                       f"{cp_dtype}_tolerance": tol})
+    return {**result, "rays": VOLSDF_PARITY_RAYS, "samples_per_ray": samples}
+
+
+def _timed_sampler():
+    """A context in which every call of the VolSDF sampler is bracketed by
+    two CUDA events (no sync): yields the list of (start, end) pairs."""
+    import contextlib
+    import torch
+    from envidr_tpu_torch.render import volsdf
+
+    @contextlib.contextmanager
+    def ctx():
+        sampler, events = volsdf.volsdf_sample, []
+
+        def timed(*a, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            z = sampler(*a, **kw)
+            end.record()
+            events.append((start, end, z.shape[1]))
+            return z
+
+        volsdf.volsdf_sample = timed
+        try:
+            yield events
+        finally:
+            volsdf.volsdf_sample = sampler
+    return ctx()
+
+
+def train_volsdf(libs, config: str = VOLSDF_INI, label: str = "train_volsdf", **overrides):
+    """``config`` with error_bound_sample at full width: VOLSDF_STEPS steps
+    after the grid refresh, the sync-free ones under sync debug mode
+    "error".  Counts are zeroed just before and read just after; returns the
+    launches of scatter_add_rows."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.ops.marching import MARCH_PATHS
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(config, error_bound_sample=True, **overrides)
+    cfg = network_config(opt)
+    widths = dict(encoder=cfg.encoding_pos, levels=cfg.num_levels, hidden=cfg.hidden_dim,
+                  hidden_color=cfg.hidden_dim_color, hidden_env=cfg.hidden_dim_env,
+                  rays=opt.num_rays, num_steps=opt.num_steps, laplace=not cfg.use_neus_sdf)
+    want = dict(encoder=widths["encoder"], levels=16, hidden=64, hidden_color=64, hidden_env=64,
+                rays=4096, num_steps=512, laplace=True)
+    assert_widths(os.path.basename(config), widths, want)
+    data = SynthSpheres("train", scale=opt.scale)
+    trainer = Trainer(opt, cfg)
+    vopts = trainer.volsdf_options()
+    for lib in libs.values():                        # this path starts here
+        lib.launches = 0
+    MARCH_PATHS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.update_extra_state()
+    with _timed_sampler() as events:
+        losses, step_ms, sync_free, _ = timed_steps(trainer, data, VOLSDF_STEPS, label)
+    launches = {k: lib.launches for k, lib in libs.items()}     # and ends here
+    torch.cuda.synchronize()
+    sampler_ms = [a.elapsed_time(b) for a, b, _ in events]
+    samples = {n for _, _, n in events}
+    want_samples = vopts.upsample_steps + vopts.n_samples_extra + 2
+    if len(events) != VOLSDF_STEPS or samples != {want_samples}:
+        raise AssertionError(f"{label}: {len(events)} sampler calls, {samples} samples a ray; "
+                             f"want {VOLSDF_STEPS} and {want_samples}")
+    if sum(MARCH_PATHS.values()):
+        raise AssertionError(f"{label}: a VolSDF step marched the grid: {dict(MARCH_PATHS)}")
+    ms_per_step = float(np.mean(step_ms[3:]))
+    phase(label, config=os.path.basename(config), overrides=repr(overrides),
+          widths=repr(widths), steps=VOLSDF_STEPS, loss_1=losses[0], loss_last=losses[-1],
+          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
+          first_step_ms=step_ms[0], sampler_ms_after_3=float(np.mean(sampler_ms[3:])),
+          sampler_share=float(np.mean(sampler_ms[3:])) / ms_per_step,
+          grow_rounds=vopts.grow_iters, last_round_samples=vopts.num_steps * vopts.grow_iters,
+          samples_per_ray=want_samples, marches=sum(MARCH_PATHS.values()),
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+          scatter_launches=launches["scatter_add_rows"])
+    return launches["scatter_add_rows"]
+
+
+def train_volsdf_hash(libs):
+    """train_volsdf on the hash grid through the kernel's path."""
+    from envidr_tpu_torch.config import HASH_KERNEL_PATH
+    launches = train_volsdf(libs, HASH_INI, "train_volsdf_hash", **HASH_KERNEL_PATH)
+    if launches < VOLSDF_STEPS:
+        raise AssertionError(f"train_volsdf_hash: scatter_add_rows launched {launches} times "
+                             f"in {VOLSDF_STEPS} steps; expected at least one a step")
+    return launches
+
+
+def split_env(libs):
+    """The per-scene recipe with split_diffuse_env: SPLIT_STEPS steps, then
+    the split relight, checked in the net and the EMA net, and val view 0
+    rendered before and after."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.io.torch_import import load_env_net
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(OURS_INI, color_mlp_path=PRETRAIN_CKPT, split_diffuse_env=True)
+    cfg = network_config(opt)
+    data, val = SynthSpheres("train", scale=opt.scale), SynthSpheres("val", scale=opt.scale)
+    trainer = Trainer(opt, cfg)
+    for lib in libs.values():                        # this path starts here
+        lib.launches = 0
+    trainer.update_extra_state()
+    losses, step_ms, sync_free, _ = timed_steps(trainer, data, SPLIT_STEPS, "split_env")
+    images, secs = [], []
+    for swap in (False, True):
+        if swap:
+            old = {w: [p.detach().clone() for p in net.env_net.parameters()]
+                   for w, net in (("net", trainer.net), ("ema", trainer.ema_net))}
+            trainer.swap_env_net(ENV_NET, split_diffuse=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = trainer.render_image(val.poses[0], val.intrinsics, val.H, val.W)["image"]
+        secs.append(time.perf_counter() - t)
+        if not np.isfinite(img).all():
+            raise AssertionError("split_env: the render is not finite")
+        images.append(img)
+    new = load_env_net(ENV_NET)
+    for w, net in (("net", trainer.net), ("ema", trainer.ema_net)):
+        if not all(torch.equal(a, b) for a, b in zip(old[w], net.diffuse_env_net.parameters())):
+            raise AssertionError(f"split_env: the {w}'s diffuse env net is not its old env net")
+        for layer, p in zip(net.env_net, new):
+            if not torch.equal(layer.weight.cpu(), torch.from_numpy(p["w"].T)):
+                raise AssertionError(f"split_env: the {w}'s env net is not the file's")
+    diff = float(np.abs(images[1] - images[0]).mean())
+    if not diff > 0.0:
+        raise AssertionError("split_env: the split relight changed no pixel")
+    phase("split_env", config="scenes/synth_spheres_ours.ini", split_diffuse_env=True,
+          steps=SPLIT_STEPS, loss_1=losses[0], loss_last=losses[-1],
+          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          ms_per_step_after_1=float(np.mean(step_ms[1:])), diffuse_env_is_old_env=True,
+          env_is_file=True, size=f"{val.H}x{val.W}", seconds_before=secs[0],
+          seconds_after=secs[1], mean_abs_diff=diff, launches=_launches(libs))
+
+
+def options_phase(libs):
+    """Each of OPTIONS on synth_spheres_cp.ini at full width: OPTION_STEPS
+    steps after the grid refresh."""
+    import numpy as np
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.ops.marching import MARCH_PATHS
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    data = SynthSpheres("train", scale=load_options(CP_INI).scale)
+    readings = {}
+    for lib in libs.values():                        # the options' paths start here
+        lib.launches = 0
+    for name, kw in OPTIONS.items():
+        opt = load_options(CP_INI, **kw)
+        trainer = Trainer(opt, network_config(opt))
+        MARCH_PATHS.clear()
+        trainer.update_extra_state()
+        losses, step_ms, sync_free, ms = timed_steps(trainer, data, OPTION_STEPS, name)
+        if name == "dt_gamma" and (MARCH_PATHS["coarse"] or MARCH_PATHS["dense"] != OPTION_STEPS):
+            raise AssertionError(f"options dt_gamma marches: {dict(MARCH_PATHS)}; all dense")
+        readings[name] = dict(ms_per_step_after_1=float(np.mean(step_ms[1:])),
+                              loss_last=losses[-1], sync_free=sync_free,
+                              mean_count=float(ms[-1]["mean_count"]))
+        phase("options", name, overrides=repr(kw), **readings[name])
+    # the background net's 2-D table takes autograd's gradient, as in JAX
+    # (its spec's scatter_impl is 'xla'): no kernel on these paths
+    _assert_no_launches(libs, "options")
+    phase("options", "all finite", options=len(OPTIONS), launches=_launches(libs))
+
+
+def sphere_mode_render(libs):
+    """render_env_on_sphere at neural_renderer_cp.ini's widths (seeded
+    weights) through the viewer's frame: SPHERE_MODE_FRAMES frames."""
+    import numpy as np
+    from envidr_tpu_torch.apps.viewer import ViewerState
+    from envidr_tpu_torch.config import load_options, network_config
+    from envidr_tpu_torch.data.png import decode
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    opt = load_options(SPHERE_INI, env_sph_mode=False, render_env_on_sphere=True)
+    cfg = network_config(opt)
+    widths = dict(levels=cfg.num_levels, rank=cfg.cp_rank, hidden=cfg.hidden_dim,
+                  hidden_color=cfg.hidden_dim_color, hidden_env=cfg.hidden_dim_env,
+                  material=cfg.material_dims, env_nets=cfg.num_env_nets)
+    assert_widths("neural_renderer_cp.ini", widths, dict(
+        levels=16, rank=32, hidden=64, hidden_color=64, hidden_env=160, material=5, env_nets=1))
+    trainer = Trainer(opt, cfg)
+    if trainer.use_grid or not hasattr(trainer.net, "env_net"):
+        raise AssertionError("sphere_mode_render: the trainer marches a grid or has no env net")
+    state = ViewerState(trainer, opt, "sphere")
+    for lib in libs.values():                        # this path starts here
+        lib.launches = 0
+    secs, imgs = [], []
+    for k in range(SPHERE_MODE_FRAMES):
+        t = time.perf_counter()
+        png, _ = state.frame(35.0 + 30.0 * k, -25.0, 3.2, SPHERE_MODE_SIZE, "image", 3, 0, 0)
+        secs.append(time.perf_counter() - t)
+        imgs.append(decode(png))
+    if imgs[0].shape != (SPHERE_MODE_SIZE, SPHERE_MODE_SIZE, 3) or imgs[0].std() == 0:
+        raise AssertionError(f"sphere_mode_render: frame {imgs[0].shape}, std {imgs[0].std()}")
+    _assert_no_launches(libs, "sphere_mode_render")
+    phase("sphere_mode_render", config="neural_renderer_cp.ini", render_env_on_sphere=True,
+          weights="seeded", widths=repr(widths), frames=SPHERE_MODE_FRAMES,
+          size=f"{SPHERE_MODE_SIZE}x{SPHERE_MODE_SIZE}",
+          ms_per_frame_after_1=1e3 * float(np.mean(secs[1:])), first_frame_ms=1e3 * secs[0],
+          mean=float(imgs[0].mean() / 255), launches=_launches(libs))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2068,9 +2399,16 @@ def main() -> int:
     unwrap_phase()
     turntable_phase()
     viewer_phase()
+    phase("volsdf_parity", **check_volsdf_parity())
+    train_volsdf(libs)
+    volsdf_hash_launches = train_volsdf_hash(libs)
+    split_env(libs)
+    options_phase(libs)
+    sphere_mode_render(libs)
     for row in rows:
         if row["name"] == "scatter_add_rows":
             row["launches_by_path"]["cli_hash"] = hash_cli_launches
+            row["launches_by_path"]["train_volsdf_hash"] = volsdf_hash_launches
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

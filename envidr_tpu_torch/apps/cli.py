@@ -118,7 +118,9 @@ def main(argv=None):
     os.makedirs(opt.workspace, exist_ok=True)
     with open(os.path.join(opt.workspace, "args.json"), "w") as f:
         json.dump({k: str(v) for k, v in dataclasses.asdict(opt).items()}, f, indent=1)
-    mode = "sphere" if opt.env_sph_mode else "scene"
+    # the env-sphere renders (JAX's CLI takes render_env_on_sphere's data,
+    # cli.py:92, but renders it in scene mode, which fails without a material)
+    mode = "sphere" if (opt.env_sph_mode or opt.render_env_on_sphere) else "scene"
     log_path = os.path.join(opt.workspace, "log.txt")
 
     def log(msg):

@@ -59,7 +59,7 @@ def main(argv=None):
     focal = W / (2 * np.tan(CAMERA_ANGLE_X / 2))
     intr = (focal, focal, W / 2, H / 2)
     material = (dict(roughness=args.roughness, metallic=args.metallic, color=list(args.color))
-                if opt.env_sph_mode else None)
+                if opt.env_sph_mode or opt.render_env_on_sphere else None)
     frames, seconds = [], []
     for k in range(args.n_frames):
         t0 = time.perf_counter()

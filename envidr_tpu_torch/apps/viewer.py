@@ -220,7 +220,7 @@ def main(argv=None):
     trainer = Trainer(opt, network_config(opt), device=resolve_device(args.device))
     trainer.load_checkpoint(args.ckpt)
     trainer.update_extra_state()
-    mode = "sphere" if opt.env_sph_mode else "scene"
+    mode = "sphere" if (opt.env_sph_mode or opt.render_env_on_sphere) else "scene"
     dataset = None
     if args.train_data:
         from envidr_tpu_torch.apps.cli import load_split

@@ -1,12 +1,12 @@
 """Camera poses, ray generation and analytic geometry helpers.
 
-Counterpart of ``envidr_tpu/geometry/rays.py`` (the functions the scene and
-sphere training paths reach, and the spherical camera pose of the env-sphere
-set).  Random draws take an explicit ``torch.Generator``.
+Counterpart of ``envidr_tpu/geometry/rays.py``.  Random draws take an
+explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -71,18 +71,65 @@ def full_image_rays(poses: torch.Tensor, intrinsics, H: int, W: int):
     return _rays_from_pixels(poses, i[None], j[None], fx, fy, cx, cy)
 
 
-def sampled_rays(generator: Optional[torch.Generator], poses: torch.Tensor, intrinsics,
-                 H: int, W: int, N: int):
-    """N uniformly drawn pixel rays shared by the B poses: rays_o, rays_d
-    [B, N, 3] and flat pixel indices inds [B, N]."""
+def _pixel_rays(poses: torch.Tensor, intrinsics, W: int, inds: torch.Tensor):
+    """The rays through the pixel centres of the flat indices ``inds`` [B, N]."""
     fx, fy, cx, cy = intrinsics
-    B = poses.shape[0]
-    inds = torch.randint(0, H * W, (N,), generator=generator, device=poses.device)
-    inds = inds[None].expand(B, N)
     i = (inds % W).float() + 0.5
     j = torch.div(inds, W, rounding_mode="floor").float() + 0.5
     rays_o, rays_d = _rays_from_pixels(poses, i, j, fx, fy, cx, cy)
     return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds}
+
+
+def sampled_rays(generator: Optional[torch.Generator], poses: torch.Tensor, intrinsics,
+                 H: int, W: int, N: int):
+    """N uniformly drawn pixel rays shared by the B poses: rays_o, rays_d
+    [B, N, 3] and flat pixel indices inds [B, N]."""
+    inds = torch.randint(0, H * W, (N,), generator=generator, device=poses.device)
+    return _pixel_rays(poses, intrinsics, W, inds[None].expand(poses.shape[0], N))
+
+
+def patch_rays(generator: Optional[torch.Generator], poses: torch.Tensor, intrinsics,
+               H: int, W: int, N: int, patch_size: int, *, corners=None):
+    """``N // patch_size^2`` square patches of ``patch_size``^2 pixels each
+    (``utils.py:136-153``), shared by the B poses.  A patch's top-left
+    pixel (row ``ix`` in ``[0, H - patch_size)``, column ``iy`` in
+    ``[0, W - patch_size)``) is drawn from ``generator``, or taken from
+    ``corners`` = (ix, iy), two int tensors [N // patch_size^2]."""
+    p, dev = patch_size, poses.device
+    if corners is None:
+        n = N // (p * p)
+        ix = torch.randint(0, H - p, (n,), generator=generator, device=dev)
+        iy = torch.randint(0, W - p, (n,), generator=generator, device=dev)
+    else:
+        ix, iy = (torch.as_tensor(c, dtype=torch.int64, device=dev) for c in corners)
+    pi, pj = torch.meshgrid(torch.arange(p, device=dev), torch.arange(p, device=dev),
+                            indexing="ij")
+    rows = ix[:, None] + pi.reshape(-1)[None]                       # [n, p^2]
+    cols = iy[:, None] + pj.reshape(-1)[None]
+    inds = (rows * W + cols).reshape(-1)
+    return _pixel_rays(poses, intrinsics, W, inds[None].expand(poses.shape[0], -1))
+
+
+def center_crop_rays(generator: Optional[torch.Generator], poses: torch.Tensor, intrinsics,
+                     H: int, W: int, N: int, center_crop: float, crop_ratio: float = 0.6, *,
+                     draws=None):
+    """Centre-weighted sampling (``utils.py:160-173``): ``int(N * crop_ratio)``
+    rays uniform in the central window of ``center_crop`` of each side, the
+    rest uniform over the image, shared by the B poses.  The draws (rows and
+    columns inside the window, flat indices outside) come from ``generator``
+    or from ``draws`` = (ic, jc, inds_bg)."""
+    dev = poses.device
+    pad = (1.0 - center_crop) / 2.0
+    H_pad, W_pad = int(H * pad), int(W * pad)
+    n_crop = int(N * crop_ratio)
+    if draws is None:
+        ic = torch.randint(0, H - 2 * H_pad, (n_crop,), generator=generator, device=dev)
+        jc = torch.randint(0, W - 2 * W_pad, (n_crop,), generator=generator, device=dev)
+        inds_bg = torch.randint(0, H * W, (N - n_crop,), generator=generator, device=dev)
+    else:
+        ic, jc, inds_bg = (torch.as_tensor(d, dtype=torch.int64, device=dev) for d in draws)
+    inds = torch.cat([(ic + H_pad) * W + (jc + W_pad), inds_bg])
+    return _pixel_rays(poses, intrinsics, W, inds[None].expand(poses.shape[0], N))
 
 
 def error_map_rays(generator: Optional[torch.Generator], poses: torch.Tensor, intrinsics,
@@ -105,17 +152,13 @@ def error_map_draws_to_rays(poses: torch.Tensor, intrinsics, H: int, W: int,
                             inds_coarse: torch.Tensor, fx_r: torch.Tensor, fy_r: torch.Tensor):
     """The rays of error-map draws: the coarse cell ``inds_coarse`` [B, N] of
     the 128x128 map and a uniform offset ``(fx_r, fy_r)`` in [0, 1) inside it."""
-    fx, fy, cx, cy = intrinsics
     inds_x = torch.div(inds_coarse, 128, rounding_mode="floor")
     inds_y = inds_coarse % 128
     sx, sy = H / 128.0, W / 128.0
     ix = torch.clamp((inds_x * sx + fx_r * sx).to(torch.int32), 0, H - 1)
     iy = torch.clamp((inds_y * sy + fy_r * sy).to(torch.int32), 0, W - 1)
-    inds = ix.long() * W + iy.long()
-    i = (inds % W).float() + 0.5
-    j = torch.div(inds, W, rounding_mode="floor").float() + 0.5
-    rays_o, rays_d = _rays_from_pixels(poses, i, j, fx, fy, cx, cy)
-    return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds, "inds_coarse": inds_coarse}
+    rays = _pixel_rays(poses, intrinsics, W, ix.long() * W + iy.long())
+    return {**rays, "inds_coarse": inds_coarse}
 
 
 def reflect_dir(w_o: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
@@ -130,6 +173,16 @@ def sphere_intersections(rays_o: torch.Tensor, rays_d: torch.Tensor, r: float = 
     nabla = ray_cam_dot ** 2 - ((rays_o * rays_o).sum(dim=-1, keepdim=True) - r ** 2)
     nabla_sqrt = torch.sqrt(nabla.clamp_min(0.0))
     return -ray_cam_dot - nabla_sqrt, -ray_cam_dot + nabla_sqrt, (nabla >= -1e-4)[..., 0]
+
+
+def sph_from_ray(rays_o: torch.Tensor, rays_d: torch.Tensor, radius: float) -> torch.Tensor:
+    """(theta, phi) / pi of each ray's far hit on the background sphere of
+    ``radius`` (``raymarching.cu:163-198``) -> [N, 2]."""
+    _, far, _ = sphere_intersections(rays_o, rays_d, radius)
+    p = rays_o + far * rays_d
+    theta = torch.atan2(p[..., 1:2], torch.sqrt(p[..., 0:1] ** 2 + p[..., 2:3] ** 2)) / math.pi
+    phi = torch.atan2(p[..., 0:1], p[..., 2:3]) / math.pi
+    return torch.cat([theta, phi], dim=-1)
 
 
 def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, aabb: torch.Tensor,

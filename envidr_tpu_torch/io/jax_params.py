@@ -8,6 +8,11 @@ pytree paths (``encoder.axes.0.2`` is ``params["encoder"]["axes"][0][2]``).
 The stack of env nets of sphere mode (``env_nets``) is a list of layers
 with a leading env axis in both: ``{'w': [E, in, out], 'b': [E, out]}`` there,
 :class:`~envidr_tpu_torch.models.mlp.StackedLinear` ([E, out, in]) here.
+One rule maps a module to its subtree (:func:`_layout`): a linear layer is
+one ``{'w', 'b'}`` (the roughness head), a list of layers is an MLP, a
+module that holds layers further down is a dict of its children (the
+network, the background net ``{"encoder", "net"}``), and any other module
+is loose leaves.
 
 :func:`merge_mlp` is the JAX trainer's ``_merge_tolerant`` for one MLP, and
 :func:`merge_leaves` for a module of loose leaves: a checkpoint tensor
@@ -24,8 +29,20 @@ from torch import nn
 
 from envidr_tpu_torch.models.mlp import StackedLinear
 
-# the MLP modules of the network, in the JAX pytree's naming
-MLP_MODULES = ("sdf_net", "diffuse_net", "color_net", "env_net", "env_nets", "renv_net")
+
+def _is_layer(module: nn.Module) -> bool:
+    return isinstance(module, (nn.Linear, StackedLinear))
+
+
+def _layout(module: nn.Module) -> str:
+    """How ``module`` lies in the JAX pytree: ``"layer"``, ``"mlp"`` (a list
+    of layers), ``"dict"`` (of its children) or ``"leaves"`` (loose
+    parameters named by their paths: the encoders' tables, the density)."""
+    if _is_layer(module):
+        return "layer"
+    if isinstance(module, nn.ModuleList) and all(_is_layer(m) for m in module):
+        return "mlp"
+    return "dict" if any(_is_layer(m) for m in module.modules()) else "leaves"
 
 
 def _t(w) -> np.ndarray:
@@ -73,18 +90,26 @@ def _flatten(tree, prefix=""):
     return [kv for k, v in items for kv in _flatten(v, f"{prefix}.{k}" if prefix else str(k))]
 
 
+def _load(module: nn.Module, tree, name: str):
+    kind = _layout(module)
+    if kind == "layer":
+        _load_mlp([module], [tree], name)
+    elif kind == "mlp":
+        _load_mlp(module, tree, name)
+    elif kind == "leaves":
+        _load_leaves(module, tree, name)
+    else:
+        expected = {n for n, _ in module.named_children()}
+        if set(tree) != expected:
+            raise ValueError(f"{name}: pytree keys {sorted(tree)} != modules {sorted(expected)}")
+        for n, child in module.named_children():
+            _load(child, tree[n], f"{name}.{n}" if name else n)
+
+
 @torch.no_grad()
 def load_jax_params(net: nn.Module, params: Dict[str, Any]) -> nn.Module:
     """Fill ``net`` from a JAX parameter pytree; every key must match."""
-    expected = {name for name, _ in net.named_children()}
-    if set(params) != expected:
-        raise ValueError(f"pytree keys {sorted(params)} != modules {sorted(expected)}")
-    for name in ("encoder", "sdf_density"):
-        if name in params:
-            _load_leaves(getattr(net, name), params[name], name)
-    for name in MLP_MODULES:
-        if name in params:
-            _load_mlp(getattr(net, name), params[name], name)
+    _load(net, params, "")
     return net
 
 
@@ -92,7 +117,12 @@ def module_arrays(module: nn.Module, tree) -> list:
     """The arrays of a JAX subtree in the order of ``module.parameters()``
     and in the port's layout (a linear layer's ``w`` transposed).  ``tree``
     may be any pytree of the parameters' structure, e.g. Adam moments."""
-    if isinstance(module, nn.ModuleList):
+    kind = _layout(module)
+    if kind == "layer":
+        return module_arrays(nn.ModuleList([module]), [tree])
+    if kind == "dict":
+        return [a for n, child in module.named_children() for a in module_arrays(child, tree[n])]
+    if kind == "mlp":
         out = []
         for layer, p in zip(module, tree):
             out.append(_t(p["w"]))
@@ -106,8 +136,17 @@ def module_arrays(module: nn.Module, tree) -> list:
 def module_tree(module: nn.Module, tensors) -> Any:
     """Inverse of :func:`module_arrays`: ``tensors`` (one per parameter, in
     order) as a JAX-layout pytree of numpy arrays."""
+    kind = _layout(module)
+    if kind == "layer":
+        return module_tree(nn.ModuleList([module]), tensors)[0]
+    if kind == "dict":
+        out, rest = {}, list(tensors)
+        for n, child in module.named_children():
+            k = len(list(child.parameters()))
+            out[n], rest = module_tree(child, rest[:k]), rest[k:]
+        return out
     arrays = [t.detach().cpu().numpy() for t in tensors]
-    if isinstance(module, nn.ModuleList):
+    if kind == "mlp":
         out, it = [], iter(arrays)
         for layer in module:
             p = {"w": np.ascontiguousarray(_t(next(it)))}
@@ -184,6 +223,23 @@ def merge_mlp(layers: nn.ModuleList, tree) -> nn.ModuleList:
         corner = tuple(slice(0, min(a, b)) for a, b in zip(dst.shape, src.shape))
         dst[corner] = torch.from_numpy(np.ascontiguousarray(src[corner])).to(dst.device)
     return layers
+
+
+def merge_module(module: nn.Module, tree, name: str) -> nn.Module:
+    """``_merge_tolerant`` of a whole module: an MLP by :func:`merge_mlp`, a
+    lone layer as a one-layer MLP, a dict child by child, loose leaves by
+    :func:`merge_leaves`.  Returns the module that now holds the weights."""
+    kind = _layout(module)
+    if kind == "mlp":
+        return merge_mlp(module, tree)
+    if kind == "layer":
+        return merge_mlp(nn.ModuleList([module]), [tree])[0]
+    if kind == "dict":
+        for n, child in list(module.named_children()):
+            setattr(module, n, merge_module(child, tree[n], f"{name}.{n}"))
+        return module
+    merge_leaves(module, tree, name)
+    return module
 
 
 @torch.no_grad()

@@ -8,7 +8,8 @@ alike.  Files are read with ``weights_only=True``: a ``.pth`` cannot run
 code when it is loaded.
 
 Formats: full model state dicts (``{"model": {"sdf_net.0.weight": ...}}``,
-the stack of sphere mode as ``env_nets.{e}.{layer}.weight``), the
+the stack of sphere mode as ``env_nets.{e}.{layer}.weight``, the roughness
+head ``roughness_layer.weight``), the
 per-environment relighting nets ``env_net_{i}.pth`` (keys
 ``env_net{layer}.weight``, no dot before the index) and Sequential nets
 (``0.weight``, ``2.weight``, ...).  Weight-norm layers are collapsed to plain
@@ -69,8 +70,10 @@ def mlp_from_state(sd: Dict[str, np.ndarray], prefix: str = "") -> List[dict]:
 
 
 def network_params_from_state(sd: Dict[str, np.ndarray]) -> dict:
-    """The parts of a full-model state dict that the port's network holds,
-    as a JAX-layout pytree; what the file lacks is left out."""
+    """The parts of a full-model state dict that the JAX package reads, as a
+    JAX-layout pytree; what the file lacks is left out.  As there, the
+    background MLP comes out under ``bg_net``, a key the network does not
+    have (its background net is ``bg``), so a resume does not load it."""
     sd = _collapse_weight_norm(sd)
     params: dict = {}
     if "encoder.embeddings" in sd:
@@ -78,11 +81,15 @@ def network_params_from_state(sd: Dict[str, np.ndarray]) -> dict:
     for leaf in ("beta", "variance"):
         if f"sdf_density.{leaf}" in sd:
             params["sdf_density"] = {leaf: sd[f"sdf_density.{leaf}"]}
-    for name in ("sdf_net", "diffuse_net", "color_net", "renv_net", "env_net"):
+    for name in ("sdf_net", "diffuse_net", "color_net", "renv_net", "env_net",
+                 "diffuse_env_net", "bg_net"):
         try:
             params[name] = mlp_from_state(sd, name)
         except KeyError:
             pass
+    if "roughness_layer.weight" in sd:
+        params["roughness_layer"] = {"w": np.ascontiguousarray(sd["roughness_layer.weight"].T),
+                                     "b": sd["roughness_layer.bias"]}
     # the stack of sphere mode: env_nets.{e}.{layer}.weight
     env_ids = sorted({int(m.group(1)) for k in sd for m in [re.match(r"env_nets\.(\d+)\.", k)] if m})
     if env_ids:

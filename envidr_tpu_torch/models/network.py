@@ -3,30 +3,36 @@
 Counterpart of ``envidr_tpu/models/network.py``.  The JAX package keeps a
 parameter pytree and pure functions; here :class:`NeRFNetwork` is an
 ``nn.Module`` whose submodule names are the pytree's top-level keys
-(``encoder``, ``sdf_density``, ``sdf_net``, ``diffuse_net``, ``color_net``,
-``env_net`` or ``env_nets``, ``renv_net``); its constructor is
-``init_network_params``, and its methods
-carry the JAX functions' names
+(``encoder``, ``sdf_density``, ``sdf_net``, ``roughness_layer``,
+``diffuse_net``, ``color_net``, ``env_net`` or ``env_nets``,
+``diffuse_env_net``, ``renv_net``, ``bg``); its constructor is
+``init_network_params``, and its methods carry the JAX functions' names
 (``forward_geometry``, ``geometry_with_normals``, ``sdf_to_sigma``,
-``forward_color``, ``get_color_mlp_extra_params``).
+``forward_color``, ``get_color_mlp_extra_params``, ``background_color``).
 
-Ported so far: the hash encoder (``encoding_pos`` ``rolled_tiled``, and
-``hashgrid`` / ``hashgrid_diff``, which select ``hash`` indexing with linear /
-smoothstep interpolation), the CP encoder (``cp``), the frequency encoding of
-the position (``frequency``: no encoder parameters), material conditioning
-(roughness, metallic and colour appended to the SDF net's input, in that
-order), the Laplace density and the NeuS alpha, a density field
-(``use_sdf=False``: a ``trunc_exp`` sigma head, normals from -grad sigma),
-the frequency/SH/IDE direction encoders, the diffuse, specular and
-environment MLPs, the stack of ``num_env_nets`` env MLPs of sphere mode
-(``env_sph_mode``: ``env_nets``, one chosen per call by ``env_index``), and
-the interreflection branch (``use_renv``: ``renv_net`` reads the colour and
-visibility of a reflected ray, gated by roughness, and ``learn_indir_blend``
-blends it in; under ``train_renv`` it replaces the specular colour outright
-where ``r_images`` are given).  :meth:`NeRFNetwork.diffuse_only` renders the
-diffuse term alone (no roughness, no specular), as a step before
-``color_net_start_iter`` does.  Numerical normals, the background net and
-``split_diffuse_env`` raise ``NotImplementedError`` until their slices land.
+Every option of the JAX ``NetworkConfig`` is ported: the hash encoder
+(``encoding_pos`` ``rolled_tiled``, and ``hashgrid`` / ``hashgrid_diff``,
+which select ``hash`` indexing with linear / smoothstep interpolation), the
+CP encoder (``cp``), the frequency encoding of the position (``frequency``:
+no encoder parameters), material conditioning (roughness, metallic and
+colour appended to the SDF net's input, in that order), the Laplace density
+and the NeuS alpha, a density field (``use_sdf=False``: a ``trunc_exp``
+sigma head, normals from -grad sigma), the geometric (sphere) init with
+softplus(100) between the SDF layers, numerical (central-difference)
+normals, a roughness head on ``geo_feat`` when the SDF net is not an
+ensemble, the frequency/SH/IDE direction encoders, the diffuse, specular and
+environment MLPs, a diffuse env net of its own (``split_diffuse_env``), the
+stack of ``num_env_nets`` env MLPs of sphere mode (``env_sph_mode``:
+``env_nets``, one chosen per call by ``env_index``), the interreflection
+branch (``use_renv``: ``renv_net`` reads the colour and visibility of a
+reflected ray, gated by roughness, and ``learn_indir_blend`` blends it in;
+under ``train_renv`` it replaces the specular colour outright where
+``r_images`` are given) and the background net (``bg_radius > 0``: a 2-D
+hash grid on the background sphere and a bias-free MLP).
+:meth:`NeRFNetwork.diffuse_only` renders the diffuse term alone (no
+roughness, no specular), as a step before ``color_net_start_iter`` does.
+``skip_layers`` is refused: the JAX package's own SDF net fails on it
+(:func:`_unported`).
 """
 
 from __future__ import annotations
@@ -43,13 +49,13 @@ from torch import nn
 
 from envidr_tpu_torch.geometry.rays import reflect_dir
 from envidr_tpu_torch.models.mlp import (
-    apply_mlp, apply_stacked_mlp, feat_act, init_linear, init_mlp, stack_mlps,
+    apply_mlp, apply_stacked_mlp, feat_act, init_linear, init_mlp, softplus_beta, stack_mlps,
 )
 from envidr_tpu_torch.ops import density as density_ops
 from envidr_tpu_torch.ops.cp import CPSpec, cp_encode_from_world, init_cp_params
 from envidr_tpu_torch.ops.freq import freq_encode, freq_output_dim
 from envidr_tpu_torch.ops.hashgrid import (
-    EncoderGradGate, HashGridSpec, hash_encode_from_world, init_hash_embeddings,
+    EncoderGradGate, HashGridSpec, hash_encode, hash_encode_from_world, init_hash_embeddings,
 )
 from envidr_tpu_torch.ops.ide import ide_encode, ide_output_dim
 from envidr_tpu_torch.ops.sh import sh_encode, sh_output_dim
@@ -255,18 +261,27 @@ class NetworkConfig:
 
 
 def _unported(cfg: NetworkConfig):
-    """Names of the options of ``cfg`` this slice does not port yet."""
+    """Names of the options of ``cfg`` the port refuses.  ``skip_layers``
+    fails in the JAX package itself: its skip layer takes ``hidden_dim +
+    sdf_in_dim`` inputs but is handed ``hidden_dim - pos_enc_dim +
+    sdf_in_dim`` (``envidr_tpu/models/network.py:254-263``), so there is
+    no reference to hold a port to."""
     checks = {
         f"encoding_pos={cfg.encoding_pos!r}": cfg.encoding_pos not in (
             "rolled_tiled", "hashgrid", "hashgrid_diff", "cp", "frequency"),
-        "numerical_normals": cfg.numerical_normals,
-        "bg_radius > 0": cfg.bg_radius > 0,
-        "split_diffuse_env": cfg.split_diffuse_env,
-        "skip_layers": bool(cfg.skip_layers),
-        "geometric_init": cfg.geometric_init,
-        "use_roughness without ensemble_mlp": cfg.use_roughness and not cfg.ensemble_mlp,
+        "skip_layers (the JAX package's SDF net fails on it: its skip layer's "
+        "input width is hidden_dim - pos_enc_dim + sdf_in_dim, its weight's "
+        "hidden_dim + sdf_in_dim, envidr_tpu/models/network.py:254-263)": bool(cfg.skip_layers),
     }
     return [name for name, bad in checks.items() if bad]
+
+
+def bg_hash_spec(cfg: NetworkConfig) -> HashGridSpec:
+    """The background net's 2-D hash grid (``network.py:344-353``): 4
+    levels, 2^19 rows, resolution 16 to 2048, linear interpolation,
+    ``hash`` indexing with autograd's table gradient."""
+    return HashGridSpec(input_dim=2, num_levels=4, level_dim=cfg.level_dim, base_resolution=16,
+                        desired_resolution=2048, log2_hashmap_size=19, interpolation="linear")
 
 
 def encode_dir(encoding: str, multires: int, degree: int, dirs, roughness=0.0):
@@ -311,6 +326,48 @@ class CPEncoder(nn.Module):
         return {"axes": [list(level) for level in self.axes], "proj": list(self.proj)}
 
 
+class BackgroundNet(nn.Module):
+    """``params["bg"]``: ``encoder.embeddings`` of :func:`bg_hash_spec` and
+    ``net``, an MLP from the encoding and the degree-4 SH of the direction
+    to a colour, without biases."""
+
+    def __init__(self, cfg: NetworkConfig, init: str, generator: Optional[torch.Generator]):
+        super().__init__()
+        spec = bg_hash_spec(cfg)
+        self.encoder = _Params(embeddings=init_hash_embeddings(spec, generator=generator))
+        self.net = init_mlp([spec.output_dim + sh_output_dim(4)]
+                            + [cfg.hidden_dim_bg] * (cfg.num_layers_bg - 1) + [3],
+                            bias=False, init=init, generator=generator)
+
+
+def _geometric_init_layers(cfg: NetworkConfig, generator) -> nn.ModuleList:
+    """The SDF net's geometric (sphere) init (``network.py:265-275``): the
+    last layer ``sign * sqrt(pi) / sqrt(in) + 1e-4 N(0, 1)`` with bias
+    ``-sign * geo_init_bias``; the first ``sqrt(2) / sqrt(out) N(0, 1)`` on
+    the first three inputs and zero on the rest; the others ``sqrt(2) /
+    sqrt(out) N(0, 1)``; biases zero."""
+    layers = []
+    sign = -1.0 if cfg.inside_outside else 1.0
+    for l in range(cfg.num_layers):
+        in_dim = cfg.sdf_in_dim if l == 0 else cfg.hidden_dim
+        last = l == cfg.num_layers - 1
+        out_dim = cfg.sdf_out_dim if last else cfg.hidden_dim
+        layer = nn.Linear(in_dim, out_dim)
+        with torch.no_grad():
+            w = torch.randn((out_dim, in_dim), generator=generator)
+            if last:
+                layer.weight.copy_(sign * math.sqrt(math.pi) / math.sqrt(in_dim) + 1e-4 * w)
+                layer.bias.fill_(-sign * cfg.geo_init_bias)
+            else:
+                w = w * (math.sqrt(2.0) / math.sqrt(out_dim))
+                if l == 0 and in_dim > 3:
+                    w[:, 3:] = 0.0
+                layer.weight.copy_(w)
+                layer.bias.zero_()
+        layers.append(layer)
+    return nn.ModuleList(layers)
+
+
 class NeRFNetwork(nn.Module):
     def __init__(self, cfg: NetworkConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -331,15 +388,19 @@ class NeRFNetwork(nn.Module):
             self.sdf_density = _Params(**(
                 density_ops.init_neus_params(cfg.init_variance) if cfg.use_neus_sdf
                 else density_ops.init_laplace_params(cfg.init_beta)))
-        layers = []
-        for l in range(cfg.num_layers):
-            in_dim = cfg.sdf_in_dim if l == 0 else cfg.hidden_dim
-            last = l == cfg.num_layers - 1
-            layers.append(init_linear(
-                in_dim, cfg.sdf_out_dim if last else cfg.hidden_dim,
-                bias=cfg.mlp_bias, init=init,
-                gain=1.0 if last else math.sqrt(2.0), generator=generator))
-        self.sdf_net = nn.ModuleList(layers)
+        if cfg.geometric_init:
+            self.sdf_net = _geometric_init_layers(cfg, generator)
+        else:
+            self.sdf_net = nn.ModuleList(
+                init_linear(cfg.sdf_in_dim if l == 0 else cfg.hidden_dim,
+                            cfg.sdf_out_dim if l == cfg.num_layers - 1 else cfg.hidden_dim,
+                            bias=cfg.mlp_bias, init=init,
+                            gain=1.0 if l == cfg.num_layers - 1 else math.sqrt(2.0),
+                            generator=generator)
+                for l in range(cfg.num_layers))
+        if cfg.use_roughness and not cfg.ensemble_mlp:     # network.py:306
+            self.roughness_layer = init_linear(cfg.geo_feat_dim, 1, init="torch_default",
+                                               generator=generator)
         if cfg.use_diffuse:
             self.diffuse_net = init_mlp(
                 [cfg.diffuse_in_dim] + [cfg.hidden_dim_diffuse]
@@ -351,18 +412,25 @@ class NeRFNetwork(nn.Module):
             with torch.no_grad():      # lower initial specular (network.py:333-334)
                 self.color_net[-1].bias -= math.log(3.0)
         if cfg.use_env_net:
-            def env_mlp():
-                return init_mlp([cfg.refdir_enc_dim] + [cfg.hidden_dim_env]
-                                * (cfg.num_layers_env - 1) + [cfg.env_feat_dim],
+            def env_mlp(in_dim=cfg.refdir_enc_dim, hidden=cfg.hidden_dim_env):
+                return init_mlp([in_dim] + [hidden] * (cfg.num_layers_env - 1)
+                                + [cfg.env_feat_dim],
                                 bias=not cfg.env_wo_bias, init=init, generator=generator)
             if cfg.env_sph_mode:      # a stacked pytree in JAX (network.py:325-328)
                 self.env_nets = stack_mlps([env_mlp() for _ in range(cfg.num_env_nets)])
             else:
                 self.env_net = env_mlp()
+                if cfg.split_diffuse_env:      # network.py:332-336
+                    self.diffuse_env_net = env_mlp(
+                        cfg.refdir_enc_dim_diffuse,
+                        cfg.hidden_dim_env_diffuse if cfg.hidden_dim_env_diffuse > 0
+                        else cfg.hidden_dim_env)
             if cfg.use_renv:    # rgb + roughness -> env feature (network.py:304-310)
                 self.renv_net = init_mlp([4, 64, 64, 64, cfg.env_feat_dim],
                                          bias=not cfg.env_wo_bias, init=init,
                                          generator=generator)
+        if cfg.bg_radius > 0:
+            self.bg = BackgroundNet(cfg, init, generator)
 
     # ------------------------------------------------------------ geometry
 
@@ -409,12 +477,13 @@ class NeRFNetwork(nn.Module):
         for l, layer in enumerate(self.sdf_net):
             h = layer(h)
             if l != cfg.num_layers - 1:
-                h = F.relu(h)
+                h = softplus_beta(h, 100.0) if cfg.geometric_init else F.relu(h)
         out: Dict[str, Any] = (
             {"sdf": h[..., 0]} if cfg.use_sdf else {"sigma": density_ops.trunc_exp(h[..., 0])})
         out["geo_feat"] = feat_act(h[..., 1:1 + cfg.geo_feat_dim], cfg.geo_feat_act)
         if cfg.use_roughness and not cfg.diffuse_only and not cfg.bypass_roughness:
-            raw = h[..., 1 + cfg.geo_feat_dim:2 + cfg.geo_feat_dim]
+            raw = (h[..., 1 + cfg.geo_feat_dim:2 + cfg.geo_feat_dim] if cfg.ensemble_mlp
+                   else self.roughness_layer(out["geo_feat"]))
             rough = cfg.roughness_act_scale * F.softplus(raw + cfg.roughness_bias)
             out["roughness"] = rough * cfg.roughness_scale
         else:
@@ -448,8 +517,9 @@ class NeRFNetwork(nn.Module):
     def geometry_with_normals(self, xyz, level_mask=None, *, need_normals: bool = True,
                               normal_anneal_ratio: float = 1.0, create_graph: bool = True,
                               material=None):
-        """forward_geometry + autodiff surface normals (of the SDF, or of
-        -sigma for a density field).
+        """forward_geometry + surface normals (of the SDF, or of -sigma for a
+        density field): by autodiff, or with ``numerical_normals`` by central
+        differences.
 
         Returns (geo_out, normals, raw_gradients).  With ``create_graph`` the
         gradients stay differentiable (the eikonal loss needs them); an eval
@@ -457,31 +527,45 @@ class NeRFNetwork(nn.Module):
         """
         if not need_normals:
             return self.forward_geometry(xyz, level_mask, material=material), None, None
-        gate = EncoderGradGate()
-        with torch.enable_grad():
-            # positions that carry a gradient (the indirect pass's grad_ray
-            # samples) keep it, through the normals too
-            pts = xyz if xyz.requires_grad else xyz.detach().requires_grad_(True)
-            geo_out = self.forward_geometry(pts, level_mask, gate, material=material)
-            gate.skip_table_grad = True
-            try:
-                field = geo_out["sdf"] if self.cfg.use_sdf else geo_out["sigma"]
-                (grads,) = torch.autograd.grad(field.sum(), pts, create_graph=create_graph)
-            finally:
-                gate.skip_table_grad = False
-        if not self.cfg.use_sdf:
-            grads = -grads
+        if self.cfg.numerical_normals:
+            geo_out, grads = self._numerical_gradients(xyz, level_mask, material)
+        else:
+            gate = EncoderGradGate()
+            with torch.enable_grad():
+                # positions that carry a gradient (the indirect pass's grad_ray
+                # samples) keep it, through the normals too
+                pts = xyz if xyz.requires_grad else xyz.detach().requires_grad_(True)
+                geo_out = self.forward_geometry(pts, level_mask, gate, material=material)
+                gate.skip_table_grad = True
+                try:
+                    field = geo_out["sdf"] if self.cfg.use_sdf else geo_out["sigma"]
+                    (grads,) = torch.autograd.grad(field.sum(), pts, create_graph=create_graph)
+                finally:
+                    gate.skip_table_grad = False
+            if not self.cfg.use_sdf:
+                grads = -grads
         if not create_graph:
             geo_out = {k: (v.detach() if torch.is_tensor(v) else v)
                        for k, v in geo_out.items()}
-        raw_gradients = grads
-        normals = grads.detach() if self.cfg.detach_normal else grads
-        normals = _safe_normalize(normals)
+            grads = grads.detach()
+        normals = _safe_normalize(grads.detach() if self.cfg.detach_normal else grads)
         if normal_anneal_ratio < 1.0:
             anneal = _safe_normalize(xyz.detach())
             normals = _safe_normalize(normals * normal_anneal_ratio
                                       + (1.0 - normal_anneal_ratio) * anneal)
-        return geo_out, normals, raw_gradients
+        return geo_out, normals, grads
+
+    def _numerical_gradients(self, xyz, level_mask, material):
+        """(geometry of ``xyz``, central differences of the field on the six
+        probes ``xyz +- numerical_normals_eps`` along each axis, network.py:
+        473-481); the field is ``-sigma`` for a density field."""
+        eps = self.cfg.numerical_normals_eps
+        eye = torch.eye(3, dtype=xyz.dtype, device=xyz.device)
+        probe = xyz[..., None, :] + torch.cat([eye, -eye]) * eps             # [..., 6, 3]
+        geo_out = self.forward_geometry(xyz, level_mask, material=material)
+        pg = self.forward_geometry(probe, level_mask, material=material)
+        f = pg["sdf"] if self.cfg.use_sdf else -pg["sigma"]                   # [..., 6]
+        return geo_out, (f[..., 0:3] - f[..., 3:6]) / (2.0 * eps)
 
     # --------------------------------------------------------------- color
 
@@ -532,7 +616,8 @@ class NeRFNetwork(nn.Module):
         if cfg.use_diffuse:
             h = geo_feat
             if cfg.diffuse_with_env:
-                nenv = self._env_feat(n_env_enc, env_index)
+                nenv = (feat_act(apply_mlp(self.diffuse_env_net, n_env_enc), cfg.env_feat_act)
+                        if cfg.split_diffuse_env else self._env_feat(n_env_enc, env_index))
                 if cfg.diffuse_env_fusion == "concat":
                     h = torch.cat([h, nenv], dim=-1)
                 elif cfg.diffuse_env_fusion == "add":
@@ -627,9 +712,20 @@ class NeRFNetwork(nn.Module):
         if cfg.diffuse_with_env:
             n_rot = normals if env_rot_radian is None else normals @ rot_theta_mat(
                 env_rot_radian, normals)
-            n_env_enc = encode_dir(cfg.encoding_ref, cfg.multires_refdir, cfg.sh_degree,
+            deg = (cfg.sh_degree_diffuse if cfg.split_diffuse_env and cfg.sh_degree_diffuse > 0
+                   else cfg.sh_degree)
+            n_env_enc = encode_dir(cfg.encoding_ref, cfg.multires_refdir, deg,
                                    n_rot, cfg.diffuse_kappa_inv) * cfg.light_intensity_scale
         return normals_enc, w_r_enc, n_dot_w_o, n_env_enc
+
+    def background_color(self, sph_coords, dirs):
+        """The background net's colour (``network.py:704-714``) at
+        ``sph_coords`` [N, 2] (:func:`~envidr_tpu_torch.geometry.rays.sph_from_ray`)
+        seen along ``dirs`` [N, 3]."""
+        h = hash_encode((sph_coords + 1.0) / 2.0, self.bg.encoder.embeddings,
+                        bg_hash_spec(self.cfg))
+        y = apply_mlp(self.bg.net, torch.cat([sh_encode(dirs, degree=4), h], dim=-1))
+        return torch.sigmoid(y) if self.cfg.color_act == "sigmoid" else density_ops.trunc_exp(y)
 
 
 def rot_theta_mat(radian, like: torch.Tensor) -> torch.Tensor:

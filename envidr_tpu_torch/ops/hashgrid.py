@@ -106,9 +106,13 @@ def init_hash_embeddings(spec: HashGridSpec, std: float = 1e-4,
     return emb.uniform_(-std, std, generator=generator)
 
 
-_CORNERS = np.array([[(c >> d) & 1 for d in range(3)] for c in range(8)],
-                    np.float32)                       # [8, 3] corner offsets
-_PRIMES = (1, 2654435761, 805459861)                  # fast_hash, first 3 axes
+def _corners(D: int) -> np.ndarray:
+    """[2^D, D] corner offsets: bit d of corner c is its offset on axis d."""
+    return np.array([[(c >> d) & 1 for d in range(D)] for c in range(2**D)], np.float32)
+
+
+_CORNERS = _corners(3)                                # [8, 3] corner offsets
+_PRIMES = (1, 2654435761, 805459861)                  # fast_hash, up to 3 axes
 _U32 = 0xFFFFFFFF
 
 
@@ -386,27 +390,31 @@ class _RolledEncodeGrad(torch.autograd.Function):
 
 
 def hash_grid_indices(spec: HashGridSpec, x: torch.Tensor) -> torch.Tensor:
-    """``hash`` indexing: the level-local row ``[L, B, 8]`` (int64, in
-    ``[0, S_l)``) of each corner of each sample.
+    """``hash`` indexing: the level-local row ``[L, B, 2^D]`` (int64, in
+    ``[0, S_l)``) of each corner of each sample (``D = spec.input_dim``).
 
-    Dense levels (``res^3 <= S_l``) index row-major, hashed levels by the
+    Dense levels (``res^D <= S_l``) index row-major, hashed levels by the
     prime-XOR ``fast_hash``; the JAX package computes both in wrapping
     uint32.  Here they run in int64 (every product stays below 2^44: grid
     positions < 2^12, primes < 2^32), masked to 32 bits after the
     multiply/XOR and the sum, then reduced mod the level size: bit-equal.
     """
-    dev = x.device
+    dev, D = x.device, spec.input_dim
     scales = device_constant(spec.scales, x.dtype, dev)[:, None, None]
-    pg = torch.floor(x[None] * scales).to(torch.int64)                # [L, B, 3]
-    cpos = pg[:, :, None, :] + device_constant(_CORNERS, torch.int64, dev)
+    pg = torch.floor(x[None] * scales).to(torch.int64)                # [L, B, D]
+    cpos = pg[:, :, None, :] + device_constant(_corners(D), torch.int64, dev)
     res = device_constant(spec.resolutions, torch.int64, dev)[:, None, None]
     sizes = device_constant(spec.sizes, torch.int64, dev)[:, None, None]
-    dense = device_constant([r**spec.input_dim <= s for r, s in
+    dense = device_constant([r**D <= s for r, s in
                              zip(spec.resolutions, spec.sizes)], torch.bool, dev)[:, None, None]
-    c0, c1, c2 = cpos.unbind(-1)                                     # [L, B, 8]
-    idx_dense = (c0 + c1 * res + c2 * res * res) & _U32
-    idx_hash = ((c0 * _PRIMES[0]) ^ (c1 * _PRIMES[1]) ^ (c2 * _PRIMES[2])) & _U32
-    return torch.remainder(torch.where(dense, idx_dense, idx_hash), sizes)
+    c = cpos.unbind(-1)                                              # D x [L, B, 2^D]
+    idx_dense, stride = c[0], res
+    idx_hash = c[0] * _PRIMES[0]
+    for d in range(1, D):
+        idx_dense = idx_dense + c[d] * stride
+        idx_hash = idx_hash ^ (c[d] * _PRIMES[d])
+        stride = stride * res
+    return torch.remainder(torch.where(dense, idx_dense & _U32, idx_hash & _U32), sizes)
 
 
 def _hash_encode_impl(spec: HashGridSpec, x: torch.Tensor,
@@ -416,20 +424,22 @@ def _hash_encode_impl(spec: HashGridSpec, x: torch.Tensor,
     The JAX package gathers from per-level tables padded to ``S_max``; the
     same rows are read here from the flat table at each level's offset.
     """
-    L, C = spec.num_levels, spec.level_dim
+    L, C, D = spec.num_levels, spec.level_dim, spec.input_dim
     B = x.shape[0]
-    idx = hash_grid_indices(spec, x)                                 # [L, B, 8]
+    idx = hash_grid_indices(spec, x)                                 # [L, B, 2^D]
     scales = device_constant(spec.scales, x.dtype, x.device)[:, None, None]
     pos = x[None] * scales
     f = pos - torch.floor(pos)
     w = f * f * (3.0 - 2.0 * f) if spec.interpolation == "smoothstep" else f
-    corner = device_constant(_CORNERS, torch.bool, x.device)         # [8, 3]
+    corner = device_constant(_corners(D), torch.bool, x.device)      # [2^D, D]
     w4 = w[:, :, None, :]
-    wsel = torch.where(corner, w4, 1.0 - w4)                         # [L, B, 8, 3]
-    weight = wsel[..., 0] * wsel[..., 1] * wsel[..., 2]              # [L, B, 8]
+    wsel = torch.where(corner, w4, 1.0 - w4)                         # [L, B, 2^D, D]
+    weight = wsel[..., 0]
+    for d in range(1, D):
+        weight = weight * wsel[..., d]                               # [L, B, 2^D]
     offsets = device_constant(spec.offsets[:-1], torch.int64, x.device)[:, None, None]
     vals = embeddings.index_select(0, (idx + offsets).reshape(-1))
-    vals = vals.reshape(L, B, 8, C).to(x.dtype)
+    vals = vals.reshape(L, B, 2**D, C).to(x.dtype)
     out = (weight[..., None] * vals).sum(dim=2)                      # [L, B, C]
     out = out.transpose(0, 1).reshape(B, L * C)
     return out.masked_fill(_oob(x)[:, None], 0.0)

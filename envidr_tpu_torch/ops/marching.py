@@ -7,8 +7,9 @@ per candidate, then the first K occupied candidates per ray (capped at
 ``early_stop_steps``).  ``coarse_march`` first probes a 4x max-pooled,
 Chebyshev-1 dilated copy of the grid every S candidates and fine-probes only
 the first M positive segments (:func:`_march_rays_coarse`); where its
-conditions do not hold it falls back to the dense march with a one-time
-warning, as the JAX package does.
+conditions do not hold (among them ``dt_gamma > 0``, whose growing steps
+only the dense march takes) it falls back to the dense march with a
+one-time warning, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -42,13 +43,14 @@ class MarchResult(NamedTuple):
 def march_rays(rays_o, rays_d, nears, fars, bitfield, *, bound: float,
                grid_size: int = 128, dt_gamma: float = 0.0, max_steps: int = 1024,
                num_samples: int = 128, early_stop_steps: int = -1,
-               noise: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None, t_start: Optional[torch.Tensor] = None,
                coarse_march: bool = False) -> MarchResult:
-    """``noise`` [N] in [0, 1) shifts each ray's start by a fraction of one
-    step (the reference's perturbation); None marches from ``nears``.
-    Only the constant-step ladder (``dt_gamma == 0``) is ported."""
-    if dt_gamma != 0.0:
-        raise NotImplementedError("dt_gamma > 0 (growing march steps) is not ported yet")
+    """``noise`` [N] in [0, 1) shifts each ray's start by a fraction of its
+    first step (the reference's perturbation); None marches from ``nears``,
+    or from ``t_start`` [N] where given (a continued march; ``nears`` still
+    anchors ``z_vals``).  With ``dt_gamma > 0`` the step grows with the
+    distance, ``t += clip(t * dt_gamma, dt_min, dt_max)``, on the dense
+    march only: ``coarse_march`` then falls back to it with a warning."""
     cascades = bitfield.shape[0]
     if coarse_march:
         # the union coarse grid needs every cascade's downsample ratio
@@ -59,7 +61,7 @@ def march_rays(rays_o, rays_d, nears, fars, bitfield, *, bound: float,
             and grid_size % int(4 * bound) == 0)
         # a coarse cell (the dilation's false-positive shell) small in world units
         cell_ok = (2.0 * bound / max(grid_size // 4, 1)) <= 0.25
-        if grid_size % 4 == 0 and cell_ok and casc_ok:
+        if dt_gamma == 0.0 and grid_size % 4 == 0 and cell_ok and casc_ok:
             # S fine steps stay inside one coarse cell; below 2 nothing is saved
             dt_min = 2.0 * SQRT3 / max_steps
             S = min(8, int(2.0 * bound / (grid_size // 4) / dt_min - 1e-6))
@@ -68,22 +70,34 @@ def march_rays(rays_o, rays_d, nears, fars, bitfield, *, bound: float,
                 return _march_rays_coarse(
                     rays_o, rays_d, nears, fars, bitfield, bound=bound,
                     grid_size=grid_size, max_steps=max_steps, num_samples=num_samples,
-                    early_stop_steps=early_stop_steps, noise=noise, stride=S)
+                    early_stop_steps=early_stop_steps, noise=noise, stride=S,
+                    t_start=t_start)
         _warn_coarse_fallback(bound, grid_size, dt_gamma, cascades)
     MARCH_PATHS["dense"] += 1
     N = rays_o.shape[0]
     T, K, H = max_steps, num_samples, grid_size
     dt_min = 2.0 * SQRT3 / max_steps
+    dt_max = 2.0 * SQRT3 * (2 ** (cascades - 1)) / H
     o, d = rays_o.detach(), rays_d.detach()
     nears, fars = nears.detach(), fars.detach()
 
-    t0 = nears
+    t0 = nears if t_start is None else t_start.detach()
     if noise is not None:
-        t0 = t0 + dt_min * noise
+        step0 = dt_min if dt_gamma == 0.0 else torch.clamp(t0 * dt_gamma, dt_min, dt_max)
+        t0 = t0 + step0 * noise
 
-    steps = torch.arange(T, dtype=torch.float32, device=o.device)
-    ts = t0[:, None] + steps[None, :] * dt_min
-    dts = torch.full((N, T), dt_min, dtype=torch.float32, device=o.device)
+    if dt_gamma == 0.0:
+        steps = torch.arange(T, dtype=torch.float32, device=o.device)
+        ts = t0[:, None] + steps[None, :] * dt_min
+        dts = torch.full((N, T), dt_min, dtype=torch.float32, device=o.device)
+    else:       # the ladder, one step at a time (the JAX package's scan)
+        t, ts, dts = t0, [], []
+        for _ in range(T):
+            dt = torch.clamp(t * dt_gamma, dt_min, dt_max)
+            ts.append(t)
+            dts.append(dt)
+            t = t + dt
+        ts, dts = torch.stack(ts, dim=1), torch.stack(dts, dim=1)       # [N, T]
 
     valid = ts < fars[:, None]
     xyz = torch.clamp(o[:, None, :] + ts[..., None] * d[:, None, :], -bound, bound)
@@ -174,7 +188,7 @@ def _coarse_union_grid(bitfield: torch.Tensor, H: int, Hc: int, bound: float) ->
 def _march_rays_coarse(rays_o, rays_d, nears, fars, bitfield, *, bound: float,
                        grid_size: int, max_steps: int, num_samples: int,
                        early_stop_steps: int, noise: Optional[torch.Tensor],
-                       stride: int = 8) -> MarchResult:
+                       stride: int = 8, t_start: Optional[torch.Tensor] = None) -> MarchResult:
     """Two-level march: probe the coarse grid at every S-th candidate, keep
     each ray's first M positive segments, fine-probe their M*S candidates.
 
@@ -199,7 +213,7 @@ def _march_rays_coarse(rays_o, rays_d, nears, fars, bitfield, *, bound: float,
     o, d = rays_o.detach(), rays_d.detach()
     nears, fars = nears.detach(), fars.detach()
 
-    t0 = nears
+    t0 = nears if t_start is None else t_start.detach()
     if noise is not None:
         t0 = t0 + dt_min * noise
 

@@ -79,15 +79,17 @@ def render_scene_indirect(net: NeRFNetwork, opts: SceneRenderOptions, iopts: Ind
     sec_opts = dataclasses.replace(
         opts, max_steps=iopts.indir_max_steps, early_stop_steps=iopts.indir_early_stop_steps,
         num_samples=iopts.indir_num_samples, min_near=dt * 2.0, geometry_only=False,
-        with_loss_aux=False, grad_ray=iopts.grad_rays, grad_rays_scale=iopts.grad_rays_scale)
+        with_loss_aux=False, grad_ray=iopts.grad_rays, grad_rays_scale=iopts.grad_rays_scale,
+        use_bg_net=False)
     sec = render_scene(net, sec_opts, bitfield, ref_o, ref_d, 0.0, aabb, noise=noise[1],
                        strat_noise=strat_noise[1], env_rot_radian=env_rot_radian, **shared)
     r_images = torch.cat([sec["image"], sec["weights_sum"][:, None]], dim=-1)
     r_images = torch.where(ref_mask[:, None], r_images, torch.zeros((), device=r_images.device))
 
-    # pass 3: the main render, fed with the reflection image
-    results = render_scene(net, dataclasses.replace(opts, geometry_only=False), bitfield,
-                           rays_o, rays_d, bg_color, aabb, noise=noise[2],
+    # pass 3: the main render, fed with the reflection image.  Passes 2 and 3
+    # composite onto their bg_color, never onto the background net
+    main_opts = dataclasses.replace(opts, geometry_only=False, use_bg_net=False)
+    results = render_scene(net, main_opts, bitfield, rays_o, rays_d, bg_color, aabb, noise=noise[2],
                            strat_noise=strat_noise[2], r_images=r_images,
                            env_rot_radian=env_rot_radian, **shared)
     results.update(normal_image=normals, depth=depth, ref_mask=ref_mask, ray_mask=ray_mask,

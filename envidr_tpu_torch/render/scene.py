@@ -1,7 +1,9 @@
 """Scene-mode renderer: occupancy-grid march, fixed sample budget, composite.
 
-Counterpart of ``envidr_tpu/render/scene.py:render_scene`` for the options
-the port reaches (no background net).  The indirect pass
+Counterpart of ``envidr_tpu/render/scene.py:render_scene``.  With
+``use_bg_net`` (and ``bg_radius > 0``) the background behind each ray is the
+background net's colour where the ray leaves the background sphere
+(``sphere_bg``).  The indirect pass
 (``render/indirect.py``) calls it three times: ``geometry_only`` (the
 normal image, depth and opacity; no colour), then on the reflected rays
 with ``grad_ray`` (image gradients reach the secondary rays' origins), then
@@ -21,7 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from envidr_tpu_torch.geometry.rays import near_far_from_aabb
+from envidr_tpu_torch.geometry.rays import near_far_from_aabb, sph_from_ray
 from envidr_tpu_torch.models.network import NeRFNetwork, _safe_normalize
 from envidr_tpu_torch.ops.compositing import alphas_from_sigmas, weights_from_alphas
 from envidr_tpu_torch.ops.marching import march_rays
@@ -48,6 +50,7 @@ class SceneRenderOptions:
     geometry_only: bool = False     # normals, depth and opacity only
     grad_ray: bool = False          # secondary-ray gradient re-attachment
     grad_rays_scale: float = 0.01
+    use_bg_net: bool = False        # the background net behind the rays
 
 
 def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Tensor,
@@ -70,7 +73,9 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
     cfg = net.cfg
     N, K = rays_o.shape[0], opts.num_samples
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)
-    if isinstance(bg_color, (int, float)):    # a fill: a copied number blocks the host
+    if opts.use_bg_net and cfg.bg_radius > 0:
+        bg = net.background_color(sph_from_ray(rays_o, rays_d, cfg.bg_radius), rays_d)
+    elif isinstance(bg_color, (int, float)):    # a fill: a copied number blocks the host
         bg = torch.full((N, 3), float(bg_color), dtype=rays_o.dtype, device=rays_o.device)
     else:
         bg = torch.as_tensor(bg_color, dtype=rays_o.dtype, device=rays_o.device).expand(N, 3)
@@ -137,6 +142,8 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
         # image.  The smooth normalisation keeps the backward finite where a
         # background ray composites an exactly-zero normal (scene.py:165-176)
         results["normal_image"] = _safe_normalize((w3 * normals).sum(dim=-2))
+        if opts.use_bg_net:
+            results["sphere_bg"] = bg
         return results
 
     normals_enc, w_r_enc, n_dot_w_o, n_env_enc = net.get_color_mlp_extra_params(
@@ -172,4 +179,6 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
         results.update(relsdf=sdfs[..., 1:] - sdfs[..., :-1], est_relsdf=gap * cos[..., :-1],
                        cos=cos[..., :-1], point_mask=point_mask, sdf_weights=weights[..., :-1],
                        sdf_dist=gap)
+    if opts.use_bg_net:
+        results["sphere_bg"] = bg
     return results

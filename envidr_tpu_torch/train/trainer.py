@@ -22,13 +22,22 @@ pretrain on the env-sphere set, ``render/sphere.py``; no grid):
     (``color_mlp_path`` / ``resume_mlps``, ``:129-131, :163-214``) and frozen
     (``frozen_mlps``: no update, no moments, no share of a clip norm, but
     their gradients enter the finite check, ``:54-108``);
-  * relighting by swapping the env net (:meth:`Trainer.swap_env_net`);
+  * relighting by swapping the env net (:meth:`Trainer.swap_env_net`; with
+    ``split_diffuse`` the old env net becomes the diffuse env net);
   * the per-epoch projection of the Laplace beta under ``beta_cap_sched``
     and the cap handed to the render and the loss as a device tensor
     (``:389-390, :517-518, :585-593``);
   * the geometric cue, an SDF pre-fit to a sphere
     (:meth:`Trainer.train_geometric_cue`, ``:265-300``);
-  * error-map ray sampling and its per-step EMA (``:407-413, :547-555``);
+  * the ray samplers (``:397-423``): error-map sampling and its per-step
+    EMA (``:547-555``), square patches (``patch_size``), a centre-weighted
+    crop (``center_crop``), and image batches (``image_batch``: the rays
+    split across B views; the epoch's order grouped B views at a time, the
+    last group wrap-padded, ``:607-619``);
+  * VolSDF's error-bound sampling in place of the march
+    (``error_bound_sample`` / ``error_bound_start_iter``, ``:488-498``);
+  * the background net behind the rays (``bg_radius > 0``; an RGBA image's
+    alpha then stays out of the target, ``:456``);
   * the interreflection pass (``indir_ref``): the train step and the eval
     render go through the three-pass render of ``render/indirect.py``
     (``:469-490, :760-794``);
@@ -41,7 +50,9 @@ pretrain on the env-sphere set, ``render/sphere.py``; no grid):
     sweep and image dumps, ``:817-932``);
   * env rotation in the eval render (``env_rot_radian``, ``:683-713``);
   * the diffuse term alone before ``color_net_start_iter`` (``:337-338``);
-  * sphere mode: each step conditioned on its frame's material and env
+  * sphere mode (``env_sph_mode``, and ``render_env_on_sphere``, whose
+    network has one env net and takes the same material inputs; no grid):
+    each step conditioned on its frame's material and env
     index, read from one device tensor of the dataset, and, with
     ``train_renv``, on its mirror-sphere image; ``train_renv`` trains
     ``renv_net`` alone and ``train_env_only`` the env nets alone
@@ -64,8 +75,9 @@ writes the JAX package's keys as plain numpy pytrees, which its
 ``load_checkpoint`` reads, and the port's optimizer state under a key of its
 own (``torch_optimizer``).
 
-Patch and crop sampling, image batches, ``render_env_on_sphere``,
-``split_diffuse_env`` and LPIPS are not ported yet and raise.
+A VolSDF step has no march and so no sample count: it leaves the running
+mean count as it was.  The JAX step raises there (``KeyError: 'counts'``,
+``trainer.py:558``).  LPIPS is not ported yet.
 """
 
 from __future__ import annotations
@@ -86,11 +98,13 @@ from envidr_tpu_torch import resolve_device
 from envidr_tpu_torch.config import Options
 from envidr_tpu_torch.data.png import write_png
 from envidr_tpu_torch.geometry.rays import (
-    error_map_rays, full_image_rays, linear_to_srgb, sampled_rays, srgb_to_linear,
+    center_crop_rays, error_map_rays, full_image_rays, linear_to_srgb, patch_rays,
+    sampled_rays, srgb_to_linear,
 )
 from envidr_tpu_torch.io import torch_import
 from envidr_tpu_torch.io.jax_params import (
-    load_jax_params, merge_leaves, merge_mlp, mlp_from_tree, module_arrays, network_tree,
+    load_jax_params, merge_mlp, merge_module, mlp_from_tree, module_arrays, module_tree,
+    network_tree,
 )
 from envidr_tpu_torch.models.network import NeRFNetwork, NetworkConfig
 from envidr_tpu_torch.ops import density as density_ops
@@ -100,6 +114,7 @@ from envidr_tpu_torch.ops.grid import (
 from envidr_tpu_torch.render.indirect import IndirectOptions, render_scene_indirect
 from envidr_tpu_torch.render.scene import SceneRenderOptions, render_scene
 from envidr_tpu_torch.render.sphere import SphereRenderOptions, render_sphere
+from envidr_tpu_torch.render.volsdf import VolSDFOptions, render_volsdf
 from envidr_tpu_torch.train.losses import compute_losses
 from envidr_tpu_torch.train.metrics import PSNRMeter, SSIMMeter
 from envidr_tpu_torch.train.schedules import StepSchedule, level_mask, resolve
@@ -108,26 +123,16 @@ VISUALS = (("diffuse_image", "diffuse"), ("specular_image", "specular"),
            ("roughness_image", "roughness"))
 
 # parameter group of each top-level module (network.py:772-819); the rest is "net"
-_GROUP_OF = {"encoder": "grid", "sdf_density": "scalar", "env_net": "env", "env_nets": "env"}
-# frozen_mlps / resume_mlps names -> modules (trainer.py:73-78, 182-184)
+_GROUP_OF = {"encoder": "grid", "sdf_density": "scalar", "env_net": "env", "env_nets": "env",
+             "diffuse_env_net": "env"}
+# frozen_mlps / resume_mlps names -> modules (trainer.py:73-78, 185-189)
 MLP_NAMES = {"specular": "color_net", "diffuse": "diffuse_net", "renv": "renv_net",
-             "specular_env": "env_net"}
+             "diffuse_env": "diffuse_env_net", "specular_env": "env_net"}
 CLIP_NORM = 10.0
 EMA_DECAY = 0.95
 ERROR_MAP_CELLS = 128 * 128
 SPHERE_STEPS, SPHERE_STEP_SIZE = 12, 0.002       # the sphere shell (trainer.py:362-368)
 ENV_MODULES = ("env_net", "env_nets", "renv_net")
-
-
-def _unported(opt: Options):
-    checks = {
-        "patch_size > 1": opt.patch_size > 1,
-        "center_crop": opt.center_crop > 0,
-        "image_batch > 1": opt.image_batch > 1,
-        "render_env_on_sphere": opt.render_env_on_sphere,
-        "error_bound_sample": opt.error_bound_sample or opt.error_bound_start_iter > 0,
-    }
-    return [name for name, bad in checks.items() if bad]
 
 
 def frozen_modules(opt: Options, names=()) -> frozenset:
@@ -293,10 +298,6 @@ class Adam:
 class Trainer:
     def __init__(self, opt: Options, cfg: NetworkConfig, *, device=None,
                  seed: Optional[int] = None, net: Optional[NeRFNetwork] = None):
-        missing = _unported(opt)
-        if missing:
-            raise NotImplementedError(
-                f"not ported to envidr_tpu_torch yet: {', '.join(missing)}")
         self.opt, self.cfg = opt, cfg
         self.device = resolve_device(device)
         seed = opt.seed if seed is None else seed
@@ -309,7 +310,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.optimizer = Adam(self.net, opt, self.device,
                               frozen_modules(opt, [n for n, _ in self.net.named_children()]))
-        self.use_grid = not opt.env_sph_mode
+        self.use_grid = not (opt.env_sph_mode or opt.render_env_on_sphere)
         self.grid_spec = GridSpec(grid_size=128, bound=cfg.bound,
                                   density_thresh=opt.density_thresh, density_scale=1.0)
         self.grid = init_grid(self.grid_spec, self.device)
@@ -354,13 +355,13 @@ class Trainer:
 
     def resume_mlps(self, path: str, which):
         """Load the MLPs ``which`` names (``specular``, ``diffuse``, ``renv``,
-        ``specular_env``) from a JAX checkpoint (``.ckpt``: its ``ema`` if it
+        ``diffuse_env``, ``specular_env``) from a JAX checkpoint (``.ckpt``: its ``ema`` if it
         has one, else ``params``) or a reference ``.pth``, merged as
         ``Trainer._resume_mlps`` merges them (:func:`merge_mlp`).  ``all``
         first loads every module of the file that the network has (the
         encoder's and the density's leaves too, each into the leading corner
-        of its own).  A name the port cannot load raises; a module the file
-        lacks raises."""
+        of its own).  An unknown name raises, and so does a module that the
+        file or the network lacks (the JAX trainer skips both)."""
         if path.endswith(".ckpt"):
             payload = read_checkpoint(path)
             loaded = payload["ema"] if "ema" in payload else payload["params"]
@@ -370,16 +371,11 @@ class Trainer:
             for name, module in list(self.net.named_children()):
                 if name not in loaded:
                     continue
-                if isinstance(module, torch.nn.ModuleList):
-                    setattr(self.net, name, merge_mlp(module, loaded[name]))
-                else:
-                    merge_leaves(module, loaded[name], name)
+                setattr(self.net, name, merge_module(module, loaded[name], name))
             which = [w for w in which if w != "all"]
         for w in which:
             if w not in MLP_NAMES:
-                raise NotImplementedError(
-                    f"resume_mlps={w!r}: not ported to envidr_tpu_torch yet "
-                    f"(the port loads {sorted(MLP_NAMES)})")
+                raise ValueError(f"resume_mlps={w!r}: not one of {sorted(MLP_NAMES)}")
             name = MLP_NAMES[w]
             if name not in loaded or not hasattr(self.net, name):
                 raise ValueError(f"resume_mlps={w!r}: {path} or the network has no {name}")
@@ -388,30 +384,35 @@ class Trainer:
     def swap_env_net(self, path: str, split_diffuse: bool = False):
         """Relighting (``trainer.py:216-229``): the env net of ``path`` (an
         ``env_net_{i}.pth``) replaces ``env_net`` in the net and in the EMA
-        net.  Where its widths equal the current ones the weights are copied
-        in place and the optimizer keeps its moments, as the JAX trainer keeps
-        its state; otherwise both modules are replaced and the new env net's
-        moments start at zero."""
-        if split_diffuse:
-            raise NotImplementedError(
-                "swap_env_net(split_diffuse=True) needs split_diffuse_env, "
-                "not ported to envidr_tpu_torch yet")
+        net; with ``split_diffuse`` (and a ``diffuse_env_net``) the old env
+        net first becomes the diffuse env net.  Where a module's widths equal
+        the incoming ones its weights are copied in place and the optimizer
+        keeps its moments, as the JAX trainer keeps its state; otherwise the
+        module is replaced and its moments start at zero."""
         layers = torch_import.load_env_net(path)
         for net in (self.net, self.ema_net):
-            old = net.env_net
-            same = len(old) == len(layers) and all(
-                tuple(l.weight.shape) == p["w"].shape[::-1] and (l.bias is None) == ("b" not in p)
-                for l, p in zip(old, layers))
-            if same:
-                with torch.no_grad():
-                    for l, p in zip(old, layers):
-                        l.weight.copy_(torch.from_numpy(np.ascontiguousarray(p["w"].T)))
-                        if l.bias is not None:
-                            l.bias.copy_(torch.from_numpy(p["b"]))
-            else:
-                net.env_net = mlp_from_tree(layers).to(self.device)
-        self.ema_net.env_net.requires_grad_(False)
+            if split_diffuse and hasattr(net, "diffuse_env_net"):
+                old = module_tree(net.env_net, list(net.env_net.parameters()))
+                self._assign_mlp(net, "diffuse_env_net", old)
+            self._assign_mlp(net, "env_net", layers)
+        self.ema_net.requires_grad_(False)
         self.optimizer.bind(self.net)
+
+    def _assign_mlp(self, net, name: str, layers):
+        """Set ``net.<name>`` to the JAX-layout MLP ``layers``: in place where
+        the shapes agree, else as a new module."""
+        mod = getattr(net, name)
+        same = len(mod) == len(layers) and all(
+            tuple(l.weight.shape) == p["w"].shape[::-1] and (l.bias is None) == ("b" not in p)
+            for l, p in zip(mod, layers))
+        if not same:
+            setattr(net, name, mlp_from_tree(layers).to(self.device))
+            return
+        with torch.no_grad():
+            for l, p in zip(mod, layers):
+                l.weight.copy_(torch.from_numpy(np.ascontiguousarray(p["w"].T)))
+                if l.bias is not None:
+                    l.bias.copy_(torch.from_numpy(np.asarray(p["b"])))
 
     # ------------------------------------------------------------ grid
 
@@ -508,10 +509,14 @@ class Trainer:
 
     # ------------------------------------------------------------ step
 
-    def _next_index(self, dataset) -> int:
+    def _next_index(self, dataset):
         if not self._order:
             self._start_epoch(dataset)
-        return int(self._order.pop(0))
+        return self._order.pop(0)
+
+    def _image_batch(self) -> int:
+        """Views a scene-mode step trains on (``image_batch``, main_nerf.py:156)."""
+        return self.opt.image_batch if self.use_grid and self.opt.image_batch > 1 else 1
 
     def _start_epoch(self, dataset):
         """The next epoch's schedule, beta cap, error map, K and shuffled
@@ -526,7 +531,13 @@ class Trainer:
         self._ensure_error_map(dataset)
         self._K = self.sample_budget(self._sched) if self.use_grid else 0
         rng = np.random.default_rng(self.opt.seed * 100003 + self.epoch)
-        self._order = list(dataset.epoch_order(rng))
+        self._order = [int(i) for i in dataset.epoch_order(rng)]
+        B = self._image_batch()
+        if B > 1:
+            # B views a step; the trailing partial group wrap-padded, so that
+            # every view trains each epoch (the reference's drop_last=False)
+            order = self._order + self._order[:(-len(self._order)) % B]
+            self._order = [tuple(order[g:g + B]) for g in range(0, len(order), B)]
 
     def _ensure_error_map(self, dataset):
         if self.opt.error_map and self.error_map is None:
@@ -569,8 +580,10 @@ class Trainer:
         self._sched = resolve(self.opt, max(self.epoch, 1), self.global_step)
         self._ensure_error_map(dataset)
         self._K = self.sample_budget(self._sched) if self.use_grid else 0
+        B = self._image_batch()
         for i in range(n_steps):
-            m = self._train_on(dataset, i % len(dataset))
+            m = self._train_on(dataset, i % len(dataset) if B == 1 else
+                               tuple((i * B + b) % len(dataset) for b in range(B)))
         return {"loss": float(m["loss"]), "steps": n_steps}
 
     def _refreshes_grid(self) -> bool:
@@ -615,24 +628,34 @@ class Trainer:
 
     def forward_loss(self, rays_o, rays_d, gt_rgb, bg, alpha_mask, *, K: int,
                      sched: StepSchedule, noise=None, strat_noise=None, material=None,
-                     env_index=0, r_images=None):
+                     env_index=0, r_images=None, volsdf_draws=None):
         """Render the rays with the live parameters and assemble the losses:
         -> (loss, render outputs, detached loss terms).  ``noise`` [N]
         perturbs the march, ``strat_noise`` [N, K] in [0, 1) jitters the
         samples (``stratified_sampling``).  Under ``sched.indir_ref`` the
         rays go through the three-pass render, and each of the two holds one
-        draw per pass (:func:`render_scene_indirect`).  In sphere mode the
-        rays go through :func:`render_sphere` with the frame's ``material``,
-        ``env_index`` and ``r_images`` (``noise`` [N, 12] jitters the shell).
-        Before ``color_net_start_iter`` the net renders the diffuse term
-        alone."""
+        draw per pass (:func:`render_scene_indirect`).  Under
+        ``sched.error_bound`` they go through VolSDF's sampler
+        (:func:`render_volsdf`), whose draws ``volsdf_draws`` (``noise``,
+        ``u``, ``perm``) holds or the trainer's generator makes.  In sphere
+        mode the rays go through :func:`render_sphere` with the frame's
+        ``material``, ``env_index`` and ``r_images`` (``noise`` [N, 12]
+        jitters the shell).  Before ``color_net_start_iter`` the net renders
+        the diffuse term alone."""
         with self.net.diffuse_only(sched.diffuse_only):
             return self._forward_loss(rays_o, rays_d, gt_rgb, bg, alpha_mask, K=K, sched=sched,
                                       noise=noise, strat_noise=strat_noise, material=material,
-                                      env_index=env_index, r_images=r_images)
+                                      env_index=env_index, r_images=r_images,
+                                      volsdf_draws=volsdf_draws)
+
+    def volsdf_options(self) -> VolSDFOptions:
+        """The error-bound sampler of a train step (``trainer.py:488-498``)."""
+        opt = self.opt
+        return VolSDFOptions(num_steps=opt.num_steps, upsample_steps=max(opt.upsample_steps, 16),
+                             min_near=opt.min_near, perturb=True, training=True)
 
     def _forward_loss(self, rays_o, rays_d, gt_rgb, bg, alpha_mask, *, K, sched, noise,
-                      strat_noise, material, env_index, r_images):
+                      strat_noise, material, env_index, r_images, volsdf_draws):
         opt, w, flags, cfg = self.opt, sched.weights, sched.flags, self.cfg
         ropts = SceneRenderOptions(
             max_steps=sched.max_steps, num_samples=K,
@@ -642,7 +665,8 @@ class Trainer:
             coarse_march=opt.coarse_march, stratified_sampling=opt.stratified_sampling,
             with_loss_aux=(flags.use_relsdf_loss or flags.use_backsdf_loss
                            or flags.use_orientation_loss or flags.use_dist_bound
-                           or flags.use_entropy_loss))
+                           or flags.use_entropy_loss),
+            use_bg_net=cfg.bg_radius > 0)
         laplace = cfg.use_sdf and not cfg.use_neus_sdf
         # the epoch's cap as a device tensor (a fill, no host-to-device copy)
         beta_cap = (torch.full((), w["_beta_cap"], device=self.device)
@@ -663,6 +687,11 @@ class Trainer:
             out = render_scene_indirect(self.net, ropts, self.indirect_options(K, sched),
                                         self.grid.bitfield, rays_o, rays_d, bg, self.aabb,
                                         obj_aabb=self.obj_aabb, **shared)
+        elif sched.error_bound:
+            out = render_volsdf(self.net, self.volsdf_options(), rays_o, rays_d, bg, self.aabb,
+                                level_mask=shared["level_mask"], beta_min=shared["beta_min"],
+                                beta_cap=beta_cap, generator=self.generator,
+                                **(volsdf_draws or {}))
         else:
             out = render_scene(self.net, ropts, self.grid.bitfield, rays_o, rays_d, bg,
                                self.aabb, **shared)
@@ -704,7 +733,9 @@ class Trainer:
         condition the render."""
         return self._train_on(dataset, self._next_index(dataset), refresh_grid)
 
-    def _train_on(self, dataset, idx: int, refresh_grid: bool = True) -> Dict[str, object]:
+    def _train_on(self, dataset, idx, refresh_grid: bool = True) -> Dict[str, object]:
+        """One step on view ``idx`` of ``dataset``, or on the views of a
+        tuple ``idx`` (an image batch)."""
         sched, opt = self._sched, self.opt
         if refresh_grid and self._refreshes_grid():
             self.update_extra_state()
@@ -715,24 +746,39 @@ class Trainer:
                             dataset.conditioning(self.device) if sphere else None,
                             dataset.device_r_images(self.device) if sphere else None)
         _, images, poses, cond, r_all = self._images
-        pose = poses[idx][None]
-        if sched.use_error_map:     # importance sampling from the image's error map
-            rays = error_map_rays(self.generator, pose, dataset.intrinsics, dataset.H,
-                                  dataset.W, sched.num_rays, self.error_map[idx][None])
+        H, W, N = dataset.H, dataset.W, sched.num_rays
+        if isinstance(idx, tuple):    # the rays split across the views, plain draws
+            # a stack of views, not an index tensor: no host-to-device copy
+            rays = sampled_rays(self.generator, torch.stack([poses[i] for i in idx]),
+                                dataset.intrinsics, H, W, N // len(idx))
+            view = torch.stack([images[i] for i in idx])
+            pix = torch.gather(view, 1, rays["inds"][..., None].expand(-1, -1, view.shape[-1]))
+            rays_o, rays_d = rays["rays_o"].reshape(-1, 3), rays["rays_d"].reshape(-1, 3)
+            pix = self._pixels(pix.reshape(-1, view.shape[-1]))
         else:
-            rays = sampled_rays(self.generator, pose, dataset.intrinsics, dataset.H,
-                                dataset.W, sched.num_rays)
-        rays_o, rays_d, inds = rays["rays_o"][0], rays["rays_d"][0], rays["inds"][0]
-        pix = self._pixels(images[idx][inds])
-        n = pix.shape[0]
-        if dataset.C == 4:
+            pose = poses[idx][None]
+            if sched.use_error_map:     # importance sampling from the image's error map
+                rays = error_map_rays(self.generator, pose, dataset.intrinsics, H, W, N,
+                                      self.error_map[idx][None])
+            elif opt.patch_size > 1:    # square patches (utils.py:565)
+                rays = patch_rays(self.generator, pose, dataset.intrinsics, H, W, N,
+                                  opt.patch_size)
+            elif opt.center_crop > 0:
+                rays = center_crop_rays(self.generator, pose, dataset.intrinsics, H, W, N,
+                                        opt.center_crop, opt.center_crop_ratio)
+            else:
+                rays = sampled_rays(self.generator, pose, dataset.intrinsics, H, W, N)
+            rays_o, rays_d, inds = rays["rays_o"][0], rays["rays_d"][0], rays["inds"][0]
+            pix = self._pixels(images[idx][inds])
+        n = pix.shape[0]      # patches round the ray count down
+        if dataset.C == 4 and self.cfg.bg_radius <= 0:
             if opt.alpha_bg_mode == "white":
                 bg = torch.ones((n, 3), device=self.device)
             else:
                 bg = torch.rand((n, 3), generator=self.generator, device=self.device)
             gt_rgb = pix[..., :3] * pix[..., 3:] + bg * (1.0 - pix[..., 3:])
             alpha_mask = pix[..., 3]
-        else:
+        else:       # the background net draws the background: the alpha is unused
             bg = torch.ones((n, 3), device=self.device)
             gt_rgb, alpha_mask = pix[..., :3], None
         noise = strat_noise = None
@@ -750,7 +796,7 @@ class Trainer:
             else:
                 strat_noise = torch.rand((n, self._K), generator=self.generator,
                                          device=self.device)
-        else:
+        elif not sched.error_bound:       # VolSDF draws its own jitter
             shape = (3, n) if sched.indir_ref else (n,)
             noise = torch.rand(shape, generator=self.generator, device=self.device)
 
@@ -764,7 +810,7 @@ class Trainer:
             self.error_map[idx] = update_error_row(self.error_map[idx],
                                                    rays["inds_coarse"][0], err)
         extra = {}
-        if self.use_grid:
+        if "counts" in out:       # a march's sample count (VolSDF has none)
             mc = out["counts"].float().mean()
             prev = torch.as_tensor(self.mean_count, dtype=torch.float64, device=self.device)
             self.mean_count = torch.where(prev < 0, mc.double(),
@@ -809,7 +855,8 @@ class Trainer:
                 max_steps=opt.max_steps, num_samples=self.eval_samples_budget(),
                 early_stop_steps=opt.early_stop_steps, dt_gamma=opt.dt_gamma,
                 T_thresh=opt.T_thresh, min_near=opt.min_near,
-                grid_size=self.grid_spec.grid_size, coarse_march=opt.coarse_march)
+                grid_size=self.grid_spec.grid_size, coarse_march=opt.coarse_march,
+                use_bg_net=self.cfg.bg_radius > 0)
             indirect = self.cfg.use_renv and opt.indir_ref_start_iter > 0
 
             def render(o, d, _):

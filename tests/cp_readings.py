@@ -75,15 +75,23 @@ def encoder_readings():
 
 
 def step_readings():
-    """The small CP step: port against JAX op by op (bf16), JAX jitted against
-    op by op (bf16), and the port's f32 step against the jitted JAX one."""
-    eager = tn.cp_step_case("bfloat16")
+    """The small CP step: port against JAX op by op and against JAX compiled
+    keeping its roundings (bf16, the test's reference), JAX jitted by default
+    and so compiled against op by op (bf16), and the port's f32 step against
+    the jitted JAX one."""
+    with jax.disable_jit():
+        eager = tn._cp_step(lambda f: f)
+    kept = tn.cp_step_case("bfloat16")
     jitted = tn._cp_step(jax.jit)
     f32 = tn.cp_step_case("float32")
     ours = tn.export_jax_layout(eager["tr"].net, grads=True)
+    ours_kept = tn.export_jax_layout(kept["tr"].net, grads=True)
     ours32 = tn.export_jax_layout(f32["tr"].net, grads=True)
     for name, (a, b) in {"bf16 port vs JAX op by op": (eager["jgrads"], ours),
+                         "bf16 port vs JAX without excess precision": (kept["jgrads"], ours_kept),
                          "bf16 JAX jit vs JAX op by op": (jitted["jgrads"], eager["jgrads"]),
+                         "bf16 JAX without excess precision vs op by op": (kept["jgrads"],
+                                                                           eager["jgrads"]),
                          "f32 port vs JAX jit": (f32["jgrads"], ours32)}.items():
         errs = _leaf_errs(a, b)
         print(f"step {name}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 from typing import Any, Dict
 
@@ -51,6 +52,75 @@ def shared_model(seed: int = 0, **extra):
     return (jopt, jcfg, params), (topt, tcfg, net)
 
 
+CP_LAPLACE_INI = os.path.join(ROOT, "configs", "synth_spheres_cp_laplace.ini")
+# the CP configs cut to test size: 4 levels up to resolution 64, rank 8,
+# width-16 MLPs
+CP_SMALL = dict(num_levels=4, desired_resolution=64, cp_rank=8, hidden_dim=16,
+                hidden_dim_color=16, hidden_dim_env=16, num_rays=64)
+
+
+FIT_POINTS = 2048
+
+
+def fit_sdf(net, seed: int, radius: float = 0.95, steps: int = 150):
+    """``steps`` Adam steps (lr 1e-2) of ``net``'s encoder and SDF net
+    towards ``|x| - radius`` on ``FIT_POINTS`` uniform points of [-1, 1]^3
+    each, drawn from ``seed``; the gradients are cleared.  A fitted SDF's
+    normals are well-conditioned (ROADMAP trap 3)."""
+    g = torch.Generator().manual_seed(seed)
+    fitted = [p for n, p in net.named_parameters() if n.startswith(("encoder", "sdf_net"))]
+    adam = torch.optim.Adam(fitted, lr=1e-2)
+    for _ in range(steps):
+        x = torch.rand((FIT_POINTS, 3), generator=g) * 2.0 - 1.0
+        sdf = net.forward_geometry(x)["sdf"]
+        loss = ((sdf - (torch.linalg.vector_norm(x, dim=-1) - radius)) ** 2).mean()
+        adam.zero_grad()
+        loss.backward()
+        adam.step()
+    net.zero_grad(set_to_none=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _fitted_params(ini: str, seed: int, radius: float, steps: int, extra: tuple):
+    """The numpy pytree of :func:`fitted_model`, fitted once a process."""
+    from envidr_tpu.config import load_options as jax_load, network_config as jax_netcfg
+    from envidr_tpu.models.network import init_network_params
+    from envidr_tpu_torch.config import load_options as torch_load
+    from envidr_tpu_torch.config import network_config as torch_netcfg
+    from envidr_tpu_torch.io.jax_params import load_jax_params
+    from envidr_tpu_torch.models.network import NeRFNetwork
+
+    kw = {**CP_SMALL, **dict(extra)}
+    jcfg = jax_netcfg(jax_load(ini, **kw))
+    params = jax.tree.map(np.asarray, init_network_params(jax.random.PRNGKey(seed), jcfg))
+    net = load_jax_params(NeRFNetwork(torch_netcfg(torch_load(ini, **kw))), params)
+    if hasattr(net, "cp_spec"):             # fit in f32, whatever the context
+        net.cp_spec = dataclasses.replace(net.cp_spec, compute_dtype="float32")
+    fit_sdf(net, seed, radius, steps)
+    return jax.tree.map(np.copy, export_jax_layout(net))
+
+
+def fitted_model(ini: str = CP_LAPLACE_INI, seed: int = 0, radius: float = 0.95,
+                 steps: int = 150, **extra):
+    """JAX (opt, cfg, params as numpy) and the port's (opt, cfg, net) of the
+    small ``ini`` with ``extra`` and equal weights (JAX's draws carried
+    across), the SDF fitted to the sphere of ``radius`` (:func:`fit_sdf`),
+    so that rays from :func:`camera_rays` meet a surface.  The net takes the
+    CP encoder's dtype of the caller's context."""
+    from envidr_tpu.config import load_options as jax_load, network_config as jax_netcfg
+    from envidr_tpu_torch.config import load_options as torch_load
+    from envidr_tpu_torch.config import network_config as torch_netcfg
+    from envidr_tpu_torch.io.jax_params import load_jax_params
+    from envidr_tpu_torch.models.network import NeRFNetwork
+
+    params = _fitted_params(ini, seed, radius, steps, tuple(sorted(extra.items())))
+    kw = {**CP_SMALL, **extra}
+    jopt, topt = jax_load(ini, **kw), torch_load(ini, **kw)
+    tcfg = torch_netcfg(topt)
+    return (jopt, jax_netcfg(jopt), params), (topt, tcfg, load_jax_params(NeRFNetwork(tcfg),
+                                                                          params))
+
+
 def _one_torch_thread():
     """One intra-op thread for torch while a module's tests run: under
     pytest-xdist every worker's default of one thread a core oversubscribes
@@ -90,6 +160,18 @@ def f32_cp_encoder():
         yield
 
 
+def jit_keeping_bf16(fn):
+    """``fn`` of one pytree argument, compiled with XLA's
+    ``xla_allow_excess_precision`` off: by default XLA drops bf16 roundings
+    under ``jit`` (trap C3); with it off the compiled function rounds where
+    the op-by-op one (``jax.disable_jit``) and the port round, in a fraction
+    of the op-by-op time."""
+    def run(p):
+        return jax.jit(fn).lower(p).compile(
+            compiler_options={"xla_allow_excess_precision": False})(p)
+    return run
+
+
 def rel_err(a, b) -> float:
     """max |a - b| / max |a| (the tolerance convention of ROADMAP C-3)."""
     a = np.asarray(a, np.float64)
@@ -111,31 +193,15 @@ def export_jax_layout(net, grads: bool = False) -> Dict[str, Any]:
     """The parameters (or their ``.grad``) of ``net`` as a JAX-layout pytree
     of numpy arrays, e.g. to compare gradients with the JAX package.  A
     parameter without a gradient reads as zeros, as JAX would return."""
+    from envidr_tpu_torch.io.jax_params import module_tree
 
     def val(t):
         if grads:
             t = torch.zeros_like(t) if t.grad is None else t.grad
-        return t.detach().cpu().numpy()
+        return t
 
-    out: Dict[str, Any] = {}
-    if not hasattr(net, "encoder"):              # the frequency encoding
-        pass
-    elif hasattr(net.encoder, "axes"):           # the CP encoder
-        out["encoder"] = {"axes": [[val(t) for t in lvl] for lvl in net.encoder.axes],
-                          "proj": [val(t) for t in net.encoder.proj]}
-    else:
-        out["encoder"] = {"embeddings": val(net.encoder.embeddings)}
-    if hasattr(net, "sdf_density"):            # not in a density field
-        out["sdf_density"] = {k: val(t) for k, t in net.sdf_density.named_parameters()}
-    for name in ("sdf_net", "diffuse_net", "color_net", "env_net", "env_nets", "renv_net"):
-        if hasattr(net, name):
-            out[name] = []
-            for layer in getattr(net, name):
-                p = {"w": np.swapaxes(val(layer.weight), -1, -2)}
-                if layer.bias is not None:
-                    p["b"] = val(layer.bias)
-                out[name].append(p)
-    return out
+    return {name: module_tree(m, [val(p) for p in m.parameters()])
+            for name, m in net.named_children()}
 
 
 def load_tool_functions(script: str, names, consts: Dict[str, Any]) -> Dict[str, Any]:

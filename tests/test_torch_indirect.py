@@ -40,6 +40,7 @@ from envidr_tpu.render.scene import render_scene as jax_render
 from envidr_tpu.train.losses import compute_losses
 from envidr_tpu.train.schedules import resolve as jax_resolve
 from envidr_tpu_torch.config import load_options as torch_load, network_config as torch_netcfg
+from envidr_tpu_torch.geometry.rays import sph_from_ray
 from envidr_tpu_torch.io.jax_params import load_jax_params
 from envidr_tpu_torch.models.network import NeRFNetwork
 from envidr_tpu_torch.render.indirect import IndirectOptions, render_scene_indirect
@@ -364,6 +365,41 @@ def test_render_scene_indirect_gradients_match_and_stay_finite(indirect_render):
     errs = _leaf_errors(c["jg"], c["net"])
     assert max(errs.values()) <= GRAD_RTOL, errs
     assert np.abs(grads["encoder"]["proj"][0]).max() > 0
+
+
+def test_render_scene_indirect_keeps_the_background_net_out_of_passes_2_and_3():
+    """With ``bg_radius > 0`` and ``use_bg_net`` the reflected rays composite
+    onto black and the main pass onto ``bg_color``, as in JAX, which turns
+    the background net off for both (``indirect.py:92,102``): rays at the
+    spheres and rays that miss everything, whose background the net would
+    colour."""
+    params, bits, o, d = sphere_scene()
+    with f32_cp_encoder():
+        (_, jcfg, drawn), (_, tcfg, _) = indir_models(seed=6, bg_radius=2.0)
+        params["bg"] = drawn["bg"]
+        net = load_jax_params(NeRFNetwork(tcfg), params)
+    bo, bd = _background_rays(16)
+    o, d = np.concatenate([o, bo]), np.concatenate([d, bd])
+    jo, to = _render_opts(use_bg_net=True)
+    ji = JaxIndirectOptions(indir_max_steps=512, indir_early_stop_steps=16, indir_num_samples=K2)
+    ti = IndirectOptions(**dataclasses.asdict(ji))
+    with f32_cp_encoder():
+        jout = jax.jit(lambda p: jax_indirect(p, jcfg, jo, ji, jnp.asarray(bits), jnp.asarray(o),
+                                              jnp.asarray(d), 1.0, jnp.asarray(AABB)))(
+            jax.tree.map(jnp.asarray, params))
+        with torch.no_grad():
+            out = render_scene_indirect(net, to, ti, torch.from_numpy(bits), torch.from_numpy(o),
+                                        torch.from_numpy(d), 1.0, torch.tensor(AABB))
+            t_o, t_d = torch.from_numpy(o), torch.from_numpy(d)
+            bg_net = net.background_color(sph_from_ray(t_o, t_d, 2.0), t_d).numpy()
+    for k in ("image", "normal_image", "depth", "weights_sum", "r_images"):
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(jout[k]), rtol=0,
+                                   atol=RENDER_ATOL, err_msg=k)
+    # the net would have coloured the rays that miss: they take bg_color
+    miss = out["weights_sum"].numpy() == 0.0
+    assert miss.sum() >= 4 and out["ref_mask"].numpy().any()
+    assert np.abs(bg_net[miss] - 1.0).max() > 10 * RENDER_ATOL
+    np.testing.assert_array_equal(out["image"].numpy()[miss], 1.0)
 
 
 @pytest.mark.parametrize("scale,opens", [(0.2, True), (1.0, False)])

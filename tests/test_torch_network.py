@@ -153,7 +153,10 @@ def test_forward_color_matches():
 
 
 def test_unported_options_raise():
+    """``skip_layers`` is the one network option the port refuses: the JAX
+    package's own SDF net fails on it
+    (``tests/test_torch_runtime_options.py::test_jax_fails_on_skip_layers``)."""
     (_, _, _), (_, tcfg, _) = shared_model()
     import dataclasses
-    with pytest.raises(NotImplementedError, match="numerical_normals"):
-        NeRFNetwork(dataclasses.replace(tcfg, numerical_normals=True))
+    with pytest.raises(NotImplementedError, match="skip_layers .*network.py:254-263"):
+        NeRFNetwork(dataclasses.replace(tcfg, skip_layers=(1,)))

@@ -6,13 +6,14 @@ package on the same parameters and rays.
 The step runs twice.  With the CP encoder in f32 (both packages'
 ``NetworkConfig.cp_spec`` patched here to ``compute_dtype='float32'``) it is
 held against the jitted JAX step to f32 tolerances.  With the production bf16
-encoder (trap C3) it is held against the JAX step run op by op
-(``jax.disable_jit``): under ``jit`` XLA drops bf16 roundings (its default
-``xla_allow_excess_precision``), and this step's gradients are so sensitive
-to those roundings that the jitted and the op-by-op JAX steps differ by
-2-46% of each leaf's max (encoder 0.458, sdf_net 0.172, env_net 0.094,
-color_net 0.063, diffuse_net 0.021; tests/cp_readings.py).  The op-by-op JAX
-step rounds where the port rounds."""
+encoder (trap C3) it is held against the JAX step compiled with XLA's
+``xla_allow_excess_precision`` off (``jit_keeping_bf16``): by default XLA
+drops bf16 roundings under ``jit``, and this step's gradients are so
+sensitive to those roundings that the default-jitted and the op-by-op
+(``jax.disable_jit``) JAX steps differ by 2-46% of each leaf's max (encoder
+0.458, sdf_net 0.172, env_net 0.094, color_net 0.063, diffuse_net 0.021;
+tests/cp_readings.py).  With excess precision off the JAX step rounds where
+the op-by-op step and the port round, in a fifth of the op-by-op time."""
 
 import copy
 import os
@@ -37,23 +38,24 @@ from envidr_tpu_torch.models.network import NeRFNetwork
 from envidr_tpu_torch.ops import density as tdens
 from envidr_tpu_torch.train.schedules import resolve
 from envidr_tpu_torch.train.trainer import Trainer
-from test_torch_helpers import (ROOT, camera_rays, export_jax_layout, f32_cp_encoder,
-                                one_torch_thread_fixture, rel_err)
+from test_torch_helpers import (CP_SMALL, ROOT, camera_rays, export_jax_layout,
+                                f32_cp_encoder, jit_keeping_bf16, one_torch_thread_fixture,
+                                rel_err)
 
 one_torch_thread = one_torch_thread_fixture("function", autouse=False)
 CP_INI = os.path.join(ROOT, "configs", "synth_spheres_cp.ini")
-# synth_spheres_cp.ini cut to test size: 4 levels up to resolution 64, rank 8,
-# width-16 MLPs; the grid stays 128, so the coarse march runs (S = 8)
-CP_SMALL = dict(num_levels=4, desired_resolution=64, cp_rank=8, hidden_dim=16,
-                hidden_dim_color=16, hidden_dim_env=16, num_rays=64)
+# synth_spheres_cp.ini cut to test size by CP_SMALL; the grid stays 128, so
+# the coarse march runs (S = 8)
 ALPHA_ATOL = 1e-6    # alphas in [0, 1], the same f32 expression
 TERM_RTOL = 1e-4     # f32 loss terms over 64 rays x 32 samples
 GRAD_RTOL = 1.3e-3   # f32 double backward, rel. to max (ROADMAP C-5)
-# bf16 step against the op-by-op JAX step: JAX rounds the second-order
-# table-gradient partial sums to bf16 in more places than the port
-# (tests/test_torch_cp.py), and the step amplifies them.  Readings
-# (tests/cp_readings.py), max over each leaf's tensors: encoder 7.3e-3,
-# sdf_net 3.1e-3, color_net 2.7e-3, env_net 2.5e-3; so 2^-6 leaves 2x room.
+# bf16 step against the JAX step that keeps its bf16 roundings: JAX rounds
+# the second-order table-gradient partial sums to bf16 in more places than
+# the port (tests/test_torch_cp.py), and the step amplifies them.  Readings
+# (tests/cp_readings.py), max over each leaf's tensors, against the op-by-op
+# step: encoder 7.3e-3, sdf_net 3.1e-3, color_net 2.7e-3, env_net 2.5e-3;
+# against the one compiled without excess precision: encoder 7.3e-3, sdf_net
+# 2.2e-4, env_net 1.2e-4; so 2^-6 leaves 2x room.
 BF16_STEP_RTOL = 2.0**-6
 K = 32
 GLOBAL_STEP = 250    # cos_anneal_ratio 0.5 at cos_anneal_steps 500
@@ -118,12 +120,11 @@ def cp_step(request):
 
 def cp_step_case(dtype: str):
     """The step with the CP encoder in ``dtype``: the JAX step jitted in f32,
-    op by op in bf16."""
+    compiled keeping its roundings in bf16."""
     if dtype == "float32":
         with f32_cp_encoder():
             return _cp_step(jax.jit)
-    with jax.disable_jit():
-        return _cp_step(lambda f: f)
+    return _cp_step(jit_keeping_bf16)
 
 
 def _cp_step(jit):
@@ -241,13 +242,27 @@ SPHERE_CONFIGS = ("neural_renderer_cp.ini", "neural_renderer_synth.ini",
 TRACKED_DATA = ("scenes/synth_shiny_ours.ini", "scenes/shiny2_indir.ini",
                 "scenes/shiny3_indir.ini", "scenes/shiny2_stack.ini")
 _DATA = {}
-# options of the shipped schema that the port does not run yet, on a config
-# that trains, and the name each raises with
+# options of the shipped schema that the port refuses, on a config that
+# trains, and the name each raises with: skip_layers, on which the JAX
+# package's own SDF net fails (tests/test_torch_runtime_options.py)
 UNPORTED_OPTIONS = {
-    "bg_radius": (dict(bg_radius=2.0), "bg_radius > 0"),
-    "split_diffuse_env": (dict(split_diffuse_env=True), "split_diffuse_env"),
-    "error_bound_sample": (dict(error_bound_sample=True), "error_bound_sample"),
-    "patch_size": (dict(patch_size=4), "patch_size > 1"),
+    "skip_layers": (dict(skip_layers=(1,)), "skip_layers"),
+}
+# options that no shipped config sets, each on the CP config: the trainer
+# takes three steps with it (their parity with JAX: test_torch_volsdf*.py,
+# test_torch_runtime_options.py, test_torch_ours.py)
+PORTED_OPTIONS = {
+    "bg_radius": dict(bg_radius=2.0),
+    "split_diffuse_env": dict(split_diffuse_env=True),
+    # VolSDF's sampler reads the Laplace beta (NeuS has none, in JAX too)
+    "error_bound_sample": dict(error_bound_sample=True, num_steps=32, use_neus_sdf=False),
+    "patch_size": dict(patch_size=4),
+    "center_crop": dict(center_crop=0.5),
+    "image_batch": dict(image_batch=2),
+    "dt_gamma": dict(dt_gamma=1.0 / 128),
+    "numerical_normals": dict(numerical_normals=True),
+    "geometric_init": dict(geometric_init=True),
+    "roughness_layer": dict(ensemble_mlp=False),
 }
 
 
@@ -313,6 +328,37 @@ def test_config_builds_a_trainer_and_takes_a_step(config):
         assert tr._sched.indir_ref and tr._sched.grad_rays and tr.cfg.use_renv
         assert "renv_open" in ms[-1]
         assert (tr.error_map is not None) == opt.error_map
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("option", sorted(PORTED_OPTIONS))
+def test_ported_option_builds_a_trainer_and_takes_a_step(option):
+    """Each option: a trainer of the small CP config on the CPU, three steps
+    on the sphere scene (two views, so the third starts epoch 2; with image
+    batches of two each step is an epoch), finite, every update applied, and
+    the option's own part in play."""
+    from envidr_tpu_torch.data.synth_scene import SynthSpheres
+    from envidr_tpu_torch.ops.marching import MARCH_PATHS
+    opt = torch_load(CP_INI, **CP_SMALL, **PORTED_OPTIONS[option])
+    tr = Trainer(opt, torch_netcfg(opt), device="cpu")
+    data = SynthSpheres("train", size=40, n=2, scale=opt.scale)
+    MARCH_PATHS.clear()
+    ms = [tr.train_step(data) for _ in range(3)]
+    assert all(np.isfinite(float(m["loss"])) for m in ms)
+    assert int(tr.notfinite) == 0 and int(tr.applied_steps) == 3
+    assert tr.epoch == (3 if option == "image_batch" else 2)
+    names = {n for n, _ in tr.net.named_children()}
+    own = {"bg_radius": "bg", "split_diffuse_env": "diffuse_env_net",
+           "roughness_layer": "roughness_layer"}.get(option)
+    assert own is None or (own in names and tr.net.get_submodule(own).parameters())
+    if option == "error_bound_sample":       # no march, no mean count
+        assert not MARCH_PATHS and "mean_count" not in ms[-1] and float(tr.mean_count) == -1.0
+    elif option == "image_batch":            # two views a step: one epoch is one step
+        assert all(isinstance(m["index"], tuple) and len(m["index"]) == 2 for m in ms)
+    elif option == "dt_gamma":               # growing steps march the dense ladder
+        assert MARCH_PATHS["dense"] == 3 and not MARCH_PATHS["coarse"]
+    else:
+        assert float(ms[-1]["mean_count"]) > 0
 
 
 @pytest.mark.parametrize("option", sorted(UNPORTED_OPTIONS))

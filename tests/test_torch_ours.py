@@ -144,12 +144,35 @@ def test_merge_tolerant_donors_match_jax(tmp_path, kind):
 
 
 def test_unported_resume_names_raise(tmp_path):
-    opt = torch_load(OURS_INI, **{**OURS_SMALL, "resume_mlps": ("diffuse_env",)})
-    with pytest.raises(NotImplementedError, match="resume_mlps='diffuse_env'"):
-        Trainer(opt, torch_netcfg(opt), device="cpu")
-    opt = torch_load(OURS_INI, **{**OURS_SMALL, "resume_mlps": ("specular_env",)})
-    with pytest.raises(ValueError, match="env_net"):      # the pretrain holds env_nets only
-        Trainer(opt, torch_netcfg(opt), device="cpu")
+    """Where the JAX trainer skips a resume name silently, the port raises:
+    ``diffuse_env`` without ``split_diffuse_env`` (the network has no
+    ``diffuse_env_net``), ``specular_env`` from the pretrain (which holds
+    the stack ``env_nets`` only), and a name of neither package."""
+    for which, name in ((("diffuse_env",), "diffuse_env_net"), (("specular_env",), "env_net"),
+                        (("speculr",), "speculr")):
+        opt = torch_load(OURS_INI, **{**OURS_SMALL, "resume_mlps": which})
+        with pytest.raises(ValueError, match=name):
+            Trainer(opt, torch_netcfg(opt), device="cpu")
+
+
+def test_resume_of_the_split_env_nets_matches_jax(tmp_path):
+    """``split_diffuse_env``: ``diffuse_env`` loads ``diffuse_env_net`` and
+    ``specular_env`` loads ``env_net`` from a checkpoint, beside the
+    pretrain's frozen colour MLPs, in the net and its EMA, as in JAX."""
+    kw = dict(split_diffuse_env=True, hidden_dim_env=32)
+    jopt = jax_load(OURS_INI, workspace=str(tmp_path), **OURS_SMALL, **kw)
+    donor = jax.tree.map(np.asarray, init_network_params(jax.random.PRNGKey(9), jax_netcfg(jopt)))
+    path = str(tmp_path / "envs.ckpt")
+    with open(path, "wb") as f:
+        pickle.dump({"params": {k: donor[k] for k in ("env_net", "diffuse_env_net")}}, f)
+    which = dict(kw, color_mlp_path=path, resume_mlps=("diffuse_env", "specular_env"))
+    jt, tr, params = _models(tmp_path, seed=3, **which)
+    for name in ("env_net", "diffuse_env_net"):
+        _assert_tree_equal(export_jax_layout(tr.net)[name], donor[name], name)
+        _assert_tree_equal(export_jax_layout(tr.ema_net)[name], jt.state["ema"][name], name)
+        _assert_tree_equal(jt.state["params"][name], donor[name], name)
+    assert {id(p) for p in tr.net.diffuse_env_net.parameters()} <= \
+        {id(p) for p in tr.optimizer.params}                 # the env group: it trains
 
 
 @pytest.fixture(scope="module")
@@ -328,5 +351,45 @@ def test_swap_env_net_render_matches_jax(tmp_path, hidden_env):
     same = [id(p) for p in tr.net.env_net.parameters()] == env_params
     assert same == (hidden_env == 160)
     assert {id(p) for p in tr.net.env_net.parameters()} <= {id(p) for p in tr.optimizer.params}
-    with pytest.raises(NotImplementedError, match="split_diffuse_env"):
+    # without a diffuse env net, split_diffuse swaps the env net alone, as in JAX
+    jt.swap_env_net(ENV5, split_diffuse=True)
+    tr.swap_env_net(ENV5, split_diffuse=True)
+    assert not hasattr(tr.net, "diffuse_env_net") and "diffuse_env_net" not in jt.state["params"]
+    _assert_tree_equal(export_jax_layout(tr.net)["env_net"], jt.state["params"]["env_net"],
+                       "env_net")
+
+
+def test_split_relight_matches_jax(tmp_path):
+    """``swap_env_net(split_diffuse=True)`` under ``split_diffuse_env``: the
+    old env net becomes the diffuse env net and the file's the env net, in
+    the net and the EMA net; the relit render agrees with JAX's, whose
+    diffuse colour now reads the old env net."""
+    with f32_cp_encoder():
+        jt, tr, _ = _models(tmp_path, seed=21, split_diffuse_env=True)
+        old = jax.tree.map(np.copy, export_jax_layout(tr.net)["env_net"])
+        old_ema = jax.tree.map(np.copy, export_jax_layout(tr.ema_net)["env_net"])
+        jt.swap_env_net(ENV5, split_diffuse=True)
         tr.swap_env_net(ENV5, split_diffuse=True)
+        new = [{k: np.asarray(v) for k, v in layer.items()}
+               for layer in jt.state["params"]["env_net"]]
+        for net, before, state in ((tr.net, old, "params"), (tr.ema_net, old_ema, "ema")):
+            ours = export_jax_layout(net)
+            _assert_tree_equal(ours["diffuse_env_net"], before, "diffuse_env_net")
+            _assert_tree_equal(ours["env_net"], new, "env_net")
+            _assert_tree_equal(ours["diffuse_env_net"], jt.state[state]["diffuse_env_net"],
+                               "diffuse_env_net")
+        o, d = camera_rays(64, seed=22)
+        bits = np.random.default_rng(23).uniform(size=(1, 128 ** 3)) < 0.6
+        aabb = np.asarray([-1.0] * 3 + [1.0] * 3, np.float32)
+        kw = dict(max_steps=512, num_samples=K, early_stop_steps=64, T_thresh=1e-4,
+                  min_near=0.2)
+        ref = jax.jit(lambda p: jax_render(p, jt.cfg, JaxRenderOptions(**kw), jnp.asarray(bits),
+                                           jnp.asarray(o), jnp.asarray(d), 1.0,
+                                           jnp.asarray(aabb))["diffuse_image"])(jt.state["ema"])
+        with torch.no_grad():
+            ours = render_scene(tr.ema_net, SceneRenderOptions(**kw), torch.from_numpy(bits),
+                                torch.from_numpy(o), torch.from_numpy(d), 1.0,
+                                torch.from_numpy(aabb))["diffuse_image"].numpy()
+    np.testing.assert_allclose(ours, np.asarray(ref), rtol=0, atol=RENDER_ATOL)
+    assert {id(p) for p in tr.net.diffuse_env_net.parameters()} <= \
+        {id(p) for p in tr.optimizer.params}
