@@ -7,9 +7,12 @@ The counterpart of ``bench.py``: the trainer of ``ENVIDR_BENCH_CONFIG``
 (default ``configs/synth_spheres_cp.ini``) at ``ENVIDR_BENCH_RAYS`` rays a
 step (default: the config's), on the in-memory sphere scene.  One grid
 refresh, 3 warm-up steps, 20 timed steps (no grid refresh among them), then
-one 400x400 view rendered twice and the second render timed.  Prints ONE
-JSON line with ``bench.py``'s keys (the GSPMD keys excepted: the port has no
-multi-card path yet).  Without a card it exits non-zero and prints nothing.
+one 400x400 view rendered twice and the second render timed.  Then the
+data-parallel probe (``envidr_tpu_torch/tools/bench_scaling.py``: 1 and 2
+ranks as processes sharing the one card) gives ``bench.py``'s two GSPMD
+keys, ``gspmd_overhead_ratio`` and ``weak_rays_per_sec_per_vdev``; a failed
+probe fails the benchmark.  Prints ONE JSON line with ``bench.py``'s keys.
+Without a card it exits non-zero and prints nothing.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ WARMUP, STEPS = 3, 20
 
 
 def run(config_path: str = DEFAULT_CONFIG, *, num_rays: int = 0, device=None,
-        warmup: int = WARMUP, steps: int = STEPS, downscale: int = 1, **overrides) -> dict:
-    """Time the train step and the eval render; returns ``bench.py``'s keys.
+        warmup: int = WARMUP, steps: int = STEPS, downscale: int = 1, scaling: bool = False,
+        **overrides) -> dict:
+    """Time the train step and the eval render; returns ``bench.py``'s keys,
+    with ``scaling`` the data-parallel probe's two as well (on the card).
     ``downscale`` shrinks the rendered view (the tests' CPU runs);
     ``overrides`` go to the config loader."""
     import torch
@@ -75,6 +80,14 @@ def run(config_path: str = DEFAULT_CONFIG, *, num_rays: int = 0, device=None,
                                    use_ema=False)
         float(res["image"].sum())
     out["eval_rays_per_sec"] = round(view.H * view.W / (time.perf_counter() - t0), 1)
+    if scaling:
+        from envidr_tpu_torch.tools import bench_scaling
+        del trainer                    # the probe's processes take the card
+        torch.cuda.empty_cache()
+        row = bench_scaling.measure(config_path)
+        out["gspmd_overhead_ratio"] = row["gspmd_overhead_ratio"]
+        out["weak_rays_per_sec_per_vdev"] = row["weak_rays_per_sec_per_vdev"]
+        out["scaling"] = row
     return out
 
 
@@ -85,7 +98,7 @@ def main() -> int:
         return 2
     config = os.environ.get("ENVIDR_BENCH_CONFIG", DEFAULT_CONFIG)
     rays = int(os.environ.get("ENVIDR_BENCH_RAYS") or 0)
-    print(json.dumps(run(config, num_rays=rays)), flush=True)
+    print(json.dumps(run(config, num_rays=rays, scaling=True)), flush=True)
     return 0
 
 

@@ -48,6 +48,15 @@ seconds:
            loaded by the port, val view 0 rendered at 400x400, PSNR against the
            analytic ground truth (white background) above 22 dB; launch counts
            are read just after (no kernel lies on the CP path)
+  lpips    the port's LPIPS (untrained AlexNet trunk, F.conv2d) of that render
+           and its ground truth on the card against the same module on the
+           CPU (relative difference, TF32 off, under LPIPS_CARD_RTOL), ms of
+           one 400x400 LPIPS on the card (median of 10); then evaluate of the
+           checkpoint on val view 0 must fill lpips with kind alex_untrained
+  fixtures ensure_synth_spheres into a temporary directory at 400 px and 50
+           train views (seconds), then NeRFDataset on it (the port's decoder,
+           seconds): the decoded train images must equal the in-memory
+           SynthSpheres("train") images bit for bit
   train_ours configs/scenes/synth_spheres_ours.ini, ENVIDR's per-scene recipe,
            at its published width (CP 16 levels x rank 32, NeuS, dense march,
            3x64 SDF and colour MLPs, env net 160, 4096 rays) with the rendering
@@ -98,7 +107,27 @@ seconds:
            from epoch 18 (every term, the indirect pass and grad rays on): 10
            steps, scatter_add_rows launched; launch counts are zeroed just
            before and read just after
-  bench_torch  bench_torch.py's function on the default config: its JSON line
+  bench_torch  bench_torch.py's function on the default config, with the
+           data-parallel probe (envidr_tpu_torch/tools/bench_scaling.py: 1 and 2
+           ranks as processes sharing the card): its JSON line with
+           gspmd_overhead_ratio and weak_rays_per_sec_per_vdev
+  parallel configs/synth_spheres_cp.ini at full width (4096 rays in all) as two
+           gloo worker processes on the one card (envidr_tpu_torch/parallel/
+           tiny_step.py, each with a timeout) against one process in this one,
+           same seed, same draws: after step 1 and (bf16) after 3 + PARALLEL_STEPS
+           more the two ranks' parameters, EMA, grid and Adam state must be bit-equal;
+           step 1's loss within PARALLEL_LOSS_RTOL and its Adam first moments
+           (the summed gradient) within PARALLEL_F32_RTOL (the CP encoder in
+           f32) and CP_BF16_RTOL (in bf16, as configured) per tensor of the
+           one-process step's, and each parameter whose gradient is above
+           PARALLEL_SIGNIFICANT of its tensor's max within PARALLEL_PARAM_ATOL
+           (below it Adam's first step may flip sign with the gradient's: 2 lr
+           apart at most); ms a step at 2 ranks and at 1 (bf16); then the
+           checkpoint's val view 0 at 400x400 rendered by 2 ranks against 1
+           (max abs difference under PARALLEL_EVAL_ATOL); then a
+           world of 1 under nccl (init and an all-reduce on the card).  Gloo
+           copies through the host, so no step here runs under sync debug mode
+           "error"
   bench    the three micro-benchmarks of envidr_tpu_torch.tools at their full
            shapes with few iterations (every table row, hash_encode of both
            indexings included); launch counts are zeroed just before and read
@@ -236,6 +265,18 @@ CP_BF16_RTOL = 2.0**-6             # of each tensor's max, the CP step with its
                                    # holds the port to JAX's op-by-op bf16 step
                                    # (tests/test_torch_neus.py, readings there
                                    # 2.5e-3 to 7.3e-3)
+PARALLEL_STEPS = 10
+PARALLEL_TIMEOUT_S = 600           # each worker process
+PARALLEL_SIGNIFICANT = 1e-3        # of a tensor's max |first moment|
+PARALLEL_PARAM_ATOL = 1e-6         # the CPU reading is 7.5e-9 (tests/test_torch_parallel.py)
+PARALLEL_LOSS_RTOL = 1e-6          # the loss's sums in two parts
+PARALLEL_F32_RTOL = 1e-4           # the summed gradient, the f32 encoder: sums in
+                                   # another order (CPU reading 5.5e-7); the bf16
+                                   # encoder rounds each rank's partial table
+                                   # gradient: CP_BF16_RTOL
+PARALLEL_EVAL_ATOL = 2e-5          # tests/test_trainer.py's sharded-eval bound
+LPIPS_CARD_RTOL = 1e-4             # the card's convolutions against the CPU's, f32
+LPIPS_REPS = 10
 CP_INI = os.path.join(ROOT, "configs", "synth_spheres_cp.ini")
 CP_CKPT = os.path.join(ROOT, "assets", "neus_cp_long_best.ckpt")
 CP_PSNR_MIN_DB = 22.0              # tests/test_cp_quality_ckpt.py's bar
@@ -832,6 +873,168 @@ def render_cp(libs):
           eval_K=trainer.eval_samples_budget(), seconds=render_s,
           eval_rays_per_s=val.H * val.W / render_s,
           cp_path_launches=repr(" ".join(f"{k}:{v}" for k, v in launches.items())))
+    return trainer, val, img, gt
+
+
+def lpips_phase(trainer, val, img, gt, libs):
+    """The port's LPIPS of render_cp's view on the card against the CPU, its
+    time, and evaluate filling lpips."""
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.train.lpips import LPIPS
+
+    for lib in libs.values():
+        lib.launches = 0
+    card, cpu = LPIPS(device="cuda"), LPIPS(device="cpu")
+    v_card, v_cpu = card(img, gt), cpu(img, gt)
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    if not np.isfinite(v_card) or rel > LPIPS_CARD_RTOL:
+        raise AssertionError(f"lpips: card {v_card} against cpu {v_cpu} (rel {rel})")
+    x0 = torch.as_tensor(img, device="cuda").permute(2, 0, 1)[None] * 2 - 1
+    x1 = torch.as_tensor(gt, device="cuda").permute(2, 0, 1)[None] * 2 - 1
+    times = []
+    with torch.no_grad():
+        for _ in range(LPIPS_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            card.distance(x0, x1)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    trainer.evaluate(val, max_images=1, track_best=False)
+    r = trainer.stats["results"][-1]
+    if r["lpips_kind"] != "alex_untrained" or not np.isfinite(r["lpips"] or np.nan):
+        raise AssertionError(f"lpips: evaluate gave {r}")
+    _assert_no_launches(libs, "lpips")
+    phase("lpips", size=f"{img.shape[0]}x{img.shape[1]}", kind=card.kind, card=v_card, cpu=v_cpu,
+          rel_diff=rel, tolerance=LPIPS_CARD_RTOL, ms=float(np.median(times)),
+          evaluate_psnr=r["psnr"], evaluate_lpips=r["lpips"], evaluate_kind=r["lpips_kind"])
+
+
+def fixtures_phase(train):
+    """ensure_synth_spheres at its canonical size, decoded back by the port."""
+    import tempfile
+
+    import numpy as np
+    from envidr_tpu_torch.data.fixtures import (
+        CANONICAL_N_TRAIN, CANONICAL_SIZE, ensure_synth_spheres,
+    )
+    from envidr_tpu_torch.data.nerf_dataset import NeRFDataset
+
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        ensure_synth_spheres(root, CANONICAL_SIZE, CANONICAL_N_TRAIN)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ds = NeRFDataset(root, "train", scale=0.33)
+        decode_s = time.perf_counter() - t
+        files = sum(len(f) for _, _, f in os.walk(root))
+    if ds.images.shape != train.images.shape or not np.array_equal(ds.images, train.images):
+        raise AssertionError(f"fixtures: decoded {ds.images.shape} differ from the in-memory "
+                             f"scene {train.images.shape}")
+    phase("fixtures", size=CANONICAL_SIZE, train_views=len(ds), files=files, write_s=write_s,
+          decode_s=decode_s, bit_equal=True)
+
+
+def _state_equal(a: dict, b: dict, prefix: str) -> bool:
+    import numpy as np
+    keys = [k for k in a if k.startswith(prefix)]
+    return bool(keys) and all(np.array_equal(a[k], b[k]) for k in keys)
+
+
+def _step1_against_one(two: dict, one: dict, lr: float):
+    """Step 1 of rank 0 against the one-process step: (largest relative
+    error of a tensor's Adam first moment, i.e. its summed gradient; largest
+    change of a parameter whose gradient is above PARALLEL_SIGNIFICANT of
+    its tensor's max; largest change of any parameter; tensors)."""
+    import numpy as np
+    grad_err = sig_err = param_err = 0.0
+    names = [k[len("step1/adam/m/"):] for k in one if k.startswith("step1/adam/m/")]
+    for name in names:
+        m = one[f"step1/adam/m/{name}"].astype(np.float64)
+        grad_err = max(grad_err, float(np.abs(m - two[f"step1/adam/m/{name}"]).max()
+                                       / max(np.abs(m).max(), 1e-30)))
+        d = np.abs(one[f"step1/param/{name}"].astype(np.float64) - two[f"step1/param/{name}"])
+        big = np.abs(m) > PARALLEL_SIGNIFICANT * np.abs(m).max()
+        sig_err = max(sig_err, float(d[big].max(initial=0.0)))
+        param_err = max(param_err, float(d.max()))
+    if not names or param_err > 2.0 * lr * (1 + 1e-6):
+        raise AssertionError(f"parallel: {len(names)} tensors, a parameter {param_err} from the "
+                             f"one-process step's (a flipped first Adam step: 2 lr = {2 * lr})")
+    return grad_err, sig_err, param_err, len(names)
+
+
+def parallel_phase():
+    """Two gloo ranks on the card against one process: step 1 with the CP
+    encoder in f32 and in bf16, the ranks bit-equal, ms a step (bf16), the
+    eval render; then nccl at world 1."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from envidr_tpu_torch.config import card_options
+    from envidr_tpu_torch.parallel.tiny_step import render_checkpoint, run_config, run_group
+
+    opt = card_options(CP_INI)
+    lr = max(opt.lr, opt.plr or opt.lr, opt.slr or opt.lr, opt.elr or opt.lr)
+    readings = {}
+    with tempfile.TemporaryDirectory() as out:
+        t = time.perf_counter()
+        for cp_dtype, steps, tol in (("float32", 0, PARALLEL_F32_RTOL),
+                                     ("bfloat16", PARALLEL_STEPS, CP_BF16_RTOL)):
+            r0, r1 = run_group(2, "train", out, "--device", "cuda", "--config", CP_INI,
+                               "--steps", str(steps), "--cp-dtype", cp_dtype,
+                               timeout=PARALLEL_TIMEOUT_S)
+            one = run_config(None, CP_INI, device="cuda", steps=steps, warmup=min(steps, 3),
+                             cp_dtype=cp_dtype)
+            torch.cuda.empty_cache()
+            if str(r0["backend"]) != "gloo":
+                raise AssertionError(f"parallel: backend {r0['backend']}, expected gloo")
+            for prefix in ("step1/", "last/"):
+                if not _state_equal(r0, r1, prefix):
+                    bad = [k for k in r0 if k.startswith(prefix)
+                           and not np.array_equal(r0[k], r1[k])]
+                    raise AssertionError(f"parallel ({cp_dtype}): ranks differ after "
+                                         f"{prefix[:-1]}: {bad[:8]}")
+            grad_err, sig_err, param_err, n = _step1_against_one(r0, one, lr)
+            loss_err = abs(float(r0["loss_1"]) - one["loss_1"]) / abs(one["loss_1"])
+            if grad_err > tol or sig_err > PARALLEL_PARAM_ATOL or loss_err > PARALLEL_LOSS_RTOL:
+                raise AssertionError(
+                    f"parallel ({cp_dtype}): step 1 against one process over {n} tensors: "
+                    f"gradients {grad_err} of their max (bound {tol}), parameters with a "
+                    f"significant gradient {sig_err} (bound {PARALLEL_PARAM_ATOL}), loss "
+                    f"{loss_err} (bound {PARALLEL_LOSS_RTOL})")
+            readings[cp_dtype] = dict(
+                grad_rel_err=grad_err, grad_tolerance=tol, param_significant_max=sig_err,
+                param_max=param_err, loss_rel_err=loss_err,
+                notfinite=(int(r0["notfinite"]), one["notfinite"]))
+            if steps:
+                readings[cp_dtype].update(ms_per_step_2_ranks=float(r0["ms_per_step"]),
+                                          ms_per_step_1_rank=one["ms_per_step"],
+                                          ratio=float(r0["ms_per_step"]) / one["ms_per_step"])
+        workers_s = time.perf_counter() - t
+        renders = run_group(2, "render", out, "--device", "cuda", "--config", CP_INI,
+                            "--ckpt", CP_CKPT, timeout=PARALLEL_TIMEOUT_S)
+        nccl = run_group(1, "allreduce", out, "--device", "cuda", "--backend", "nccl",
+                         timeout=PARALLEL_TIMEOUT_S)[0]
+    one_render = render_checkpoint(None, CP_INI, CP_CKPT, device="cuda")
+    img_err = float(np.abs(renders[0]["image"] - one_render["image"]).max())
+    if img_err > PARALLEL_EVAL_ATOL or not np.array_equal(renders[0]["image"], renders[1]["image"]):
+        raise AssertionError(f"parallel: the 2-rank render differs from the 1-rank one by "
+                             f"{img_err} > {PARALLEL_EVAL_ATOL}, or between ranks")
+    if str(nccl["backend"]) != "nccl" or not np.array_equal(nccl["sum"], np.arange(4.0)):
+        raise AssertionError(f"parallel: nccl world 1 gave {nccl}")
+    for cp_dtype, r in readings.items():
+        phase("parallel", f"step1_{cp_dtype}", json.dumps(r))
+    bf16 = readings["bfloat16"]
+    phase("parallel", config="synth_spheres_cp.ini", rays=opt.num_rays, ranks=2,
+          backend="gloo", sync_debug="off (gloo copies through the host)",
+          ranks_bit_equal=True, steps=1 + 3 + PARALLEL_STEPS,
+          ms_per_step_2_ranks=bf16["ms_per_step_2_ranks"],
+          ms_per_step_1_rank=bf16["ms_per_step_1_rank"], ratio=bf16["ratio"],
+          eval_max_abs_diff=img_err, eval_tolerance=PARALLEL_EVAL_ATOL,
+          render_s_2_ranks=float(renders[0]["render_s"]), render_s_1_rank=one_render["render_s"],
+          nccl_world1_allreduce=nccl["sum"].tolist(), train_s=workers_s)
 
 
 def _launches(libs) -> str:
@@ -2341,7 +2544,8 @@ def main() -> int:
     phase("cp_parity", **check_cp_parity())
     phase("ours_parity", **check_cp_parity("scenes/synth_spheres_ours.ini", "ours_parity"))
     train_cp(libs)
-    render_cp(libs)
+    lpips_phase(*render_cp(libs), libs)
+    fixtures_phase(train)
     trainer_ours, opt_ours = train_ours(libs)
     relight(trainer_ours, opt_ours)
     del trainer_ours
@@ -2357,7 +2561,12 @@ def main() -> int:
     train_shiny3(shiny3_train, libs)
     stack_launches = train_stack(libs)
     import bench_torch
-    phase("bench_torch", json.dumps(bench_torch.run()))
+    row = bench_torch.run(scaling=True)
+    if not (row["gspmd_overhead_ratio"] > 0 and all(
+            v > 0 for v in row["weak_rays_per_sec_per_vdev"].values())):
+        raise AssertionError(f"bench_torch: scaling probe gave {row}")
+    phase("bench_torch", json.dumps(row))
+    parallel_phase()
 
     for lib in libs.values():                        # the benchmarks' path starts here
         lib.launches = 0

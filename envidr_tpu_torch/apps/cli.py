@@ -197,6 +197,8 @@ def main(argv=None):
             psnr = trainer.evaluate(val_set)
             r = (trainer.stats.get("results") or [{}])[-1]
             extra = f" ssim={r['ssim']:.4f}" if r.get("ssim") is not None else ""
+            if r.get("lpips") is not None:
+                extra += f" lpips[{r.get('lpips_kind')}]={r['lpips']:.4f}"
             log(f"[eval ep {trainer.epoch}] PSNR = {psnr:.3f}{extra}")
             best = max(best, psnr)
 

@@ -11,8 +11,11 @@ decode.  The interface is that of
 ``intrinsics``, ``H``, ``W``, ``C``, ``device_images(device)`` and
 ``epoch_order``.
 
-``process_shard`` (multi-host loading) and ``fp16_preload`` wait for the
-parallel slice and raise.
+``process_shard`` keeps this process's share of the frames,
+``frames[rank::world]`` (the rank and world of ``torch.distributed`` when it
+is initialised, else 0 and 1); ``fp16_preload`` puts the images on the
+device as float16 already divided by their dtype's largest value, which the
+trainer then leaves as they are.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from envidr_tpu_torch.data.png import read_png, read_pngs
+from envidr_tpu_torch.data.png import pixel_max, read_png, read_pngs
 from envidr_tpu_torch.geometry.rays import nerf_matrix_to_ngp
 
 
@@ -103,6 +106,15 @@ def rand_poses(rng: np.random.Generator, size: int, radius: float = 1.0,
     return poses
 
 
+def process_rank():
+    """(rank, world) of ``torch.distributed``, or (0, 1) when it is not
+    initialised."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def _image_path(root: str, frame: dict) -> str:
     path = os.path.join(root, frame["file_path"])
     return path if os.path.splitext(path)[1] else path + ".png"
@@ -123,11 +135,8 @@ class NeRFDataset:
                  offset=(0, 0, 0), downscale: int = 1, test_skip: int = 1,
                  process_shard: bool = False, n_test: int = 10,
                  fp16_preload: bool = False):
-        if process_shard or fp16_preload:
-            raise NotImplementedError(
-                "NeRFDataset process_shard / fp16_preload: not ported to "
-                "envidr_tpu_torch yet (the parallel slice)")
         self.root, self.split = root, split
+        self.fp16_preload = fp16_preload
         tpath = os.path.join(root, f"transforms_{split}.json")
         self.mode = "blender"
         if not os.path.exists(tpath):
@@ -158,6 +167,9 @@ class NeRFDataset:
             # the first frame is the validation view (provider.py:230)
             frames = (frames[1:] if split == "train"
                       else frames[:1] if split == "val" else frames)
+        if process_shard:       # this process's frames (nerf_dataset.py:169-174)
+            rank, world = process_rank()
+            frames = frames[rank::world]
         images = read_pngs([_image_path(root, fr) for fr in frames])
         self.images = np.stack([_rgb(img)[::downscale, ::downscale] for img in images])
         self.poses = np.stack([ngp(fr) for fr in frames])
@@ -187,10 +199,18 @@ class NeRFDataset:
         return self.poses.shape[0]
 
     def device_images(self, device) -> torch.Tensor:
-        """uint8 [B, H*W, C] on ``device``."""
+        """[B, H*W, C] on ``device``: the decoded dtype (uint8, or bool for
+        1-bit grey; uint16 as int32, which torch's gather takes), or under
+        ``fp16_preload`` float16 divided by the dtype's largest value
+        (``provider.py:289-299``)."""
         B = self.images.shape[0]
-        return torch.from_numpy(
-            np.ascontiguousarray(self.images.reshape(B, self.H * self.W, self.C))).to(device)
+        flat = torch.from_numpy(np.ascontiguousarray(
+            self.images.reshape(B, self.H * self.W, self.C)))
+        if self.fp16_preload:
+            return (flat.float() / pixel_max(self.images.dtype)).half().to(device)
+        if flat.dtype == torch.uint16:
+            flat = flat.int()
+        return flat.to(device)
 
     def epoch_order(self, rng: np.random.Generator, shuffle: bool = True):
         idx = np.arange(len(self))

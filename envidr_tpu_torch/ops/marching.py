@@ -83,8 +83,9 @@ def march_rays(rays_o, rays_d, nears, fars, bitfield, *, bound: float,
 
     t0 = nears if t_start is None else t_start.detach()
     if noise is not None:
-        step0 = dt_min if dt_gamma == 0.0 else torch.clamp(t0 * dt_gamma, dt_min, dt_max)
-        t0 = t0 + step0 * noise
+        # clip(t0 * dt_gamma, dt_min, dt_max) as in JAX: dt_max where it is
+        # below dt_min (fewer than grid_size max_steps on one cascade)
+        t0 = t0 + torch.clamp(t0 * dt_gamma, dt_min, dt_max) * noise
 
     if dt_gamma == 0.0:
         steps = torch.arange(T, dtype=torch.float32, device=o.device)

@@ -167,6 +167,23 @@ def volsdf_sample(net: NeRFNetwork, opts: VolSDFOptions, rays_o, rays_d, nears, 
     return torch.sort(torch.cat([z_samples] + z_extra, dim=-1), dim=-1).values
 
 
+def volsdf_draws(opts: VolSDFOptions, n: int, generator: torch.Generator,
+                 device) -> Dict[str, torch.Tensor]:
+    """The draws of a training render of ``n`` rays, made from ``generator``
+    in the order in which :func:`volsdf_sample` makes them: ``noise`` [n,
+    num_steps] (under ``perturb``), ``u`` [n, upsample_steps] and ``perm`` of
+    the ``num_steps * (grow_iters + 1)`` samples (when ``n_samples_extra``).
+    A sharded step draws the global batch's and keeps its rays' rows."""
+    draws = {}
+    if opts.perturb:
+        draws["noise"] = torch.rand((n, opts.num_steps), generator=generator, device=device)
+    draws["u"] = torch.rand((n, opts.upsample_steps), generator=generator, device=device)
+    if opts.n_samples_extra > 0:
+        draws["perm"] = torch.randperm(opts.num_steps * (opts.grow_iters + 1),
+                                       generator=generator, device=device)
+    return draws
+
+
 def render_volsdf(net: NeRFNetwork, opts: VolSDFOptions, rays_o, rays_d, bg_color,
                   aabb: torch.Tensor, *, env_index=0, level_mask=None, beta_min=None,
                   beta_cap=None, noise=None, u=None, perm=None,

@@ -4,6 +4,12 @@ Counterpart of ``envidr_tpu/train/losses.py:compute_losses``: color,
 diffuse, mask BCE, the SDF relation (``relsdf``), the distance bound,
 back-face, orientation, Cauchy, entropy and eikonal terms, and sphere mode's
 surface term (``sdf``: the mean |SDF| on the analytic sphere).
+
+Every mean and sum over rays or samples goes through a :class:`RayReduce`:
+on one rank the plain ``mean`` / ``sum``; over a process group the sum
+across the ranks (``parallel/mesh.py:global_sum``), and a mean as that sum
+over the global count, so that each rank computes the loss of the whole
+batch (a ratio's denominator included) and its own share of the gradient.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from envidr_tpu_torch.ops.density import laplace_density
+from envidr_tpu_torch.parallel.mesh import Group, global_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +53,25 @@ DEFAULT_WEIGHTS = dict(
 )
 
 
+class RayReduce:
+    """Sums and means over the rays (and their samples) of the global
+    batch, whose ranks each hold equal shares."""
+
+    def __init__(self, group: Optional[Group] = None):
+        self.group = group if group is not None and group.sharded else None
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return global_sum(self.group, x.sum())
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return x.mean()
+        return global_sum(self.group, x.sum()) / (x.numel() * self.group.world)
+
+
+LOCAL = RayReduce()
+
+
 def _color_err(pred, gt, kind: str):
     if kind == "l1":
         return (pred - gt).abs()
@@ -65,27 +91,30 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
                    neus_inv_s: Optional[torch.Tensor] = None,
                    alpha_mask: Optional[torch.Tensor] = None,
                    diffuse_gt: Optional[torch.Tensor] = None,
-                   roughness: Optional[torch.Tensor] = None):
+                   roughness: Optional[torch.Tensor] = None,
+                   reduce: RayReduce = LOCAL):
     """Returns (total_loss, per-term dict of detached scalars).
 
     ``beta`` (Laplace) or ``neus_inv_s`` (NeuS) is the density's sharpness,
     which the Cauchy and entropy terms read; ``roughness`` [N, K, 1] weights
-    the Cauchy term under ``cauchy_roughness_weighted``."""
+    the Cauchy term under ``cauchy_roughness_weighted``; ``reduce`` forms
+    the sums and means (over a process group, across its ranks)."""
     w = {**DEFAULT_WEIGHTS, **weights}
+    mean, total = reduce.mean, reduce.sum
     terms: Dict[str, torch.Tensor] = {}
 
-    color = _color_err(outputs["image"], gt_rgb, flags.color_loss).mean()
+    color = mean(_color_err(outputs["image"], gt_rgb, flags.color_loss))
     loss = w["color"] * color
     terms["color"] = color
 
     if flags.use_diffuse_loss and diffuse_gt is not None:
-        t = _color_err(outputs["diffuse_image"], diffuse_gt, flags.color_loss).mean()
+        t = mean(_color_err(outputs["diffuse_image"], diffuse_gt, flags.color_loss))
         loss = loss + w["diffuse"] * t
         terms["diffuse"] = t
 
     if flags.use_mask_loss and alpha_mask is not None:
         ws = outputs["weights_sum"].clamp(1e-3, 1.0 - 1e-3)
-        t = -(alpha_mask * torch.log(ws) + (1.0 - alpha_mask) * torch.log(1.0 - ws)).mean()
+        t = -mean(alpha_mask * torch.log(ws) + (1.0 - alpha_mask) * torch.log(1.0 - ws))
         loss = loss + w["mask"] * t
         terms["mask"] = t
 
@@ -97,13 +126,13 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
 
     if flags.use_relsdf_loss:
         l_d = (outputs["relsdf"] - outputs["est_relsdf"]) ** 2 * pm
-        t = l_d.mean() if flags.relsdf_mode == "mean" else l_d.sum()
+        t = mean(l_d) if flags.relsdf_mode == "mean" else total(l_d)
         loss = loss + w["relsdf"] * t
         terms["relsdf"] = t
 
     if flags.use_dist_bound:
         l_db = F.relu(outputs["relsdf"].abs() - outputs["sdf_dist"]) ** 2
-        t = (l_db * pm).sum()
+        t = total(l_db * pm)
         loss = loss + w["dist_bound"] * t
         terms["dist_bound"] = t
 
@@ -113,13 +142,13 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
         m = pm & (wts > flags.backsdf_thresh) & (rel > 0)
         s_sq = rel ** 2
         r_cos_sq = s_sq / (outputs["sdf_dist"].clamp_min(5e-4) ** 2 + s_sq)
-        num = torch.where(m, wts * r_cos_sq, zero).sum()
-        t = num if flags.backsdf_mode == "sum" else num / (1.0 + torch.where(m, wts, zero).sum())
+        num = total(torch.where(m, wts * r_cos_sq, zero))
+        t = num if flags.backsdf_mode == "sum" else num / (1.0 + total(torch.where(m, wts, zero)))
         loss = loss + w["backsdf"] * t
         terms["backsdf"] = t
 
     if flags.use_orientation_loss:
-        t = torch.where(pm, outputs["sdf_weights"] * F.relu(outputs["cos"]), zero).sum()
+        t = total(torch.where(pm, outputs["sdf_weights"] * F.relu(outputs["cos"]), zero))
         loss = loss + w["orientation"] * t
         terms["orientation"] = t
 
@@ -144,7 +173,7 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
         if flags.cauchy_roughness_weighted and roughness is not None:
             r = roughness.detach()[..., 0]
             rw = torch.sigmoid(0.5 * (1.0 / r.clamp(2e-2, 0.1) - 25.0)) * 10.0
-        t = (1.0 / scale) * (torch.log1p((1.0 - reg_density) ** 2 * scale ** 2) * rw).mean()
+        t = (1.0 / scale) * mean(torch.log1p((1.0 - reg_density) ** 2 * scale ** 2) * rw)
         loss = loss + w["cauchy"] * t
         terms["cauchy"] = t
 
@@ -154,7 +183,7 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
         m = (wts > 0.02) & (rd > 0.05) & (rd < 0.95)
         if pm is not None:
             m = m & pm
-        t = torch.where(m, -torch.log(1.0 - rd + 1e-6) * wts, zero).sum()
+        t = total(torch.where(m, -torch.log(1.0 - rd + 1e-6) * wts, zero))
         loss = loss + w["entropy"] * t
         terms["entropy"] = t
 
@@ -165,14 +194,14 @@ def compute_losses(outputs: Dict[str, Any], gt_rgb: torch.Tensor, flags: LossFla
         mask = outputs.get("mask")
         if mask is not None and mask.shape == norms.shape:
             # masked mean over the valid marched samples only
-            t = torch.where(mask, (norms - 1.0) ** 2, zero).sum() / mask.sum().clamp_min(1)
+            t = total(torch.where(mask, (norms - 1.0) ** 2, zero)) / total(mask).clamp_min(1)
         else:
-            t = ((norms - 1.0) ** 2).mean()
+            t = mean((norms - 1.0) ** 2)
         loss = loss + w["eikonal"] * t
         terms["eikonal"] = t
 
     if flags.use_sdf_loss and "surf_sdfs" in outputs:
-        t = outputs["surf_sdfs"].abs().mean()
+        t = mean(outputs["surf_sdfs"].abs())
         loss = loss + w["sdf"] * t
         terms["sdf"] = t
 

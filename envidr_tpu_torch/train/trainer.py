@@ -46,8 +46,8 @@ pretrain on the env-sphere set, ``render/sphere.py``; no grid):
   * the epoch loop (:meth:`Trainer.train_one_epoch`, ``:580-680``), which
     reads its steps' metrics back once, at the epoch's end, and the ad-hoc
     steps of the viewer (:meth:`Trainer.train_one_epoch_steps`, ``:949-990``);
-  * :meth:`Trainer.evaluate` (PSNR and SSIM over a split, an env-rotation
-    sweep and image dumps, ``:817-932``);
+  * :meth:`Trainer.evaluate` (PSNR, SSIM and LPIPS over a split, an
+    env-rotation sweep and image dumps, ``:817-932``);
   * env rotation in the eval render (``env_rot_radian``, ``:683-713``);
   * the diffuse term alone before ``color_net_start_iter`` (``:337-338``);
   * sphere mode (``env_sph_mode``, and ``render_env_on_sphere``, whose
@@ -77,7 +77,14 @@ own (``torch_optimizer``).
 
 A VolSDF step has no march and so no sample count: it leaves the running
 mean count as it was.  The JAX step raises there (``KeyError: 'counts'``,
-``trainer.py:558``).  LPIPS is not ported yet.
+``trainer.py:558``).
+
+Over a process group (``mesh``, :mod:`envidr_tpu_torch.parallel.mesh`) the
+step is ray-data-parallel and equals the one-rank step on the same global
+batch (``trainer.py:115-147, 425-443, 740-760``): the draws, the loss's
+sums, the gradients, the sample count and the error map are global; the
+grid is rank 0's; an eval render is shared out and all-gathered; rank 0
+alone writes checkpoints.
 """
 
 from __future__ import annotations
@@ -96,7 +103,7 @@ import torch
 
 from envidr_tpu_torch import resolve_device
 from envidr_tpu_torch.config import Options
-from envidr_tpu_torch.data.png import write_png
+from envidr_tpu_torch.data.png import pixel_max, write_png
 from envidr_tpu_torch.geometry.rays import (
     center_crop_rays, error_map_rays, full_image_rays, linear_to_srgb, patch_rays,
     sampled_rays, srgb_to_linear,
@@ -111,12 +118,15 @@ from envidr_tpu_torch.ops import density as density_ops
 from envidr_tpu_torch.ops.grid import (
     GridSpec, OccupancyGrid, init_grid, mark_untrained, update_grid,
 )
+from envidr_tpu_torch.parallel.mesh import (
+    Group, all_reduce_grads, global_from_local, ray_sharded, replicate_tree, shard_rays,
+)
 from envidr_tpu_torch.render.indirect import IndirectOptions, render_scene_indirect
 from envidr_tpu_torch.render.scene import SceneRenderOptions, render_scene
 from envidr_tpu_torch.render.sphere import SphereRenderOptions, render_sphere
-from envidr_tpu_torch.render.volsdf import VolSDFOptions, render_volsdf
-from envidr_tpu_torch.train.losses import compute_losses
-from envidr_tpu_torch.train.metrics import PSNRMeter, SSIMMeter
+from envidr_tpu_torch.render.volsdf import VolSDFOptions, render_volsdf, volsdf_draws
+from envidr_tpu_torch.train.losses import RayReduce, compute_losses
+from envidr_tpu_torch.train.metrics import LPIPSMeter, PSNRMeter, SSIMMeter
 from envidr_tpu_torch.train.schedules import StepSchedule, level_mask, resolve
 
 VISUALS = (("diffuse_image", "diffuse"), ("specular_image", "specular"),
@@ -297,15 +307,23 @@ class Adam:
 
 class Trainer:
     def __init__(self, opt: Options, cfg: NetworkConfig, *, device=None,
-                 seed: Optional[int] = None, net: Optional[NeRFNetwork] = None):
+                 seed: Optional[int] = None, net: Optional[NeRFNetwork] = None,
+                 mesh: Optional[Group] = None):
+        """``mesh``, a process group of several ranks (``parallel/mesh.py``),
+        trains ray-data-parallel: each rank holds the whole model and takes
+        its share of every batch's rays (:meth:`_train_on`)."""
         self.opt, self.cfg = opt, cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        self._reduce = RayReduce(self.mesh)
         seed = opt.seed if seed is None else seed
         if net is None:
             net = NeRFNetwork(cfg, generator=torch.Generator().manual_seed(seed))
         self.net = net.to(self.device)
         if opt.color_mlp_path:        # before the EMA copy, as trainer.py:129-141
             self.resume_mlps(opt.color_mlp_path, opt.resume_mlps)
+        replicate_tree(self.mesh, self.net)     # rank 0's parameters everywhere
         self.ema_net = copy.deepcopy(self.net).requires_grad_(False)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.optimizer = Adam(self.net, opt, self.device,
@@ -339,6 +357,7 @@ class Trainer:
         self._K = 0
         self._order: list = []
         self._images = None
+        self._lpips_meter: Optional[LPIPSMeter] = None    # made by the first evaluate
 
     @property
     def applied_steps(self) -> torch.Tensor:
@@ -434,6 +453,8 @@ class Trainer:
         with torch.no_grad():
             self.grid = update_grid(self.grid, self.grid_spec, density_fn,
                                     self.generator, fraction=fraction)
+        # every rank drew the same cells; rank 0's grid makes them bit-equal
+        replicate_tree(self.mesh, self.grid[:3])
 
     def mark_untrained_grid(self, poses, intrinsics):
         """Mark the grid cells that no camera of ``poses`` [B, 4, 4] sees as
@@ -448,7 +469,8 @@ class Trainer:
         (``trainer.py:265-300``): ``steps`` updates of the main optimizer
         (its moments and counters, as in JAX) on ``mean((sdf - (|x| - r))^2)``
         over ``points`` points drawn uniformly in ``[-bound, bound]^3`` from
-        the trainer's generator, or over ``given_points[i]`` at step ``i``.
+        the trainer's generator, or over ``given_points[i]`` at step ``i``
+        (over a process group, each rank its share of them).
         The EMA is then set to the cued parameters.  Returns every step's
         loss, read on the host once, at the end (None for a density field)."""
         if not self.cfg.use_sdf:
@@ -462,9 +484,11 @@ class Trainer:
             else:
                 pts = torch.rand((points, 3), generator=self.generator,
                                  device=self.device) * (2.0 * b) - b
+            pts = shard_rays(self.mesh, pts)
             sdf = self.net.forward_geometry(pts)["sdf"]
-            loss = ((sdf - (torch.linalg.vector_norm(pts, dim=-1) - r)) ** 2).mean()
+            loss = self._reduce.mean((sdf - (torch.linalg.vector_norm(pts, dim=-1) - r)) ** 2)
             loss.backward()
+            all_reduce_grads(self.mesh, self.net.parameters())
             self.optimizer.step()
             for p in self.net.parameters():
                 p.grad = None
@@ -705,12 +729,16 @@ class Trainer:
             neus_inv_s = torch.clamp(torch.exp(self.net.sdf_density.variance * 10.0),
                                      1e-6, 1e6)
         loss, terms = compute_losses(out, gt_rgb, flags, w, alpha_mask=alpha_mask, beta=beta,
-                                     neus_inv_s=neus_inv_s, roughness=out.get("roughness"))
+                                     neus_inv_s=neus_inv_s, roughness=out.get("roughness"),
+                                     reduce=self._reduce)
         return loss, out, terms
 
     def _apply_update(self):
         """Skip-if-non-finite, per-group clip, decayed lr, Adam, EMA (of the
-        trainable parameters: a frozen one stays equal to its EMA copy)."""
+        trainable parameters: a frozen one stays equal to its EMA copy).
+        Over a process group the gradients are first summed across ranks, so
+        that every rank takes the same update."""
+        all_reduce_grads(self.mesh, self.net.parameters())
         self.optimizer.step()
         for p in self.net.parameters():
             p.grad = None
@@ -735,7 +763,9 @@ class Trainer:
 
     def _train_on(self, dataset, idx, refresh_grid: bool = True) -> Dict[str, object]:
         """One step on view ``idx`` of ``dataset``, or on the views of a
-        tuple ``idx`` (an image batch)."""
+        tuple ``idx`` (an image batch).  Over a process group every rank
+        draws the whole batch (rays, pixels, background, jitter, VolSDF's
+        draws) from the same generator and keeps its share of the rays."""
         sched, opt = self._sched, self.opt
         if refresh_grid and self._refreshes_grid():
             self.update_extra_state()
@@ -744,8 +774,9 @@ class Trainer:
             self._images = (dataset, dataset.device_images(self.device),
                             torch.as_tensor(dataset.poses, device=self.device),
                             dataset.conditioning(self.device) if sphere else None,
-                            dataset.device_r_images(self.device) if sphere else None)
-        _, images, poses, cond, r_all = self._images
+                            dataset.device_r_images(self.device) if sphere else None,
+                            pixel_max(dataset.images.dtype))
+        _, images, poses, cond, r_all, top = self._images
         H, W, N = dataset.H, dataset.W, sched.num_rays
         if isinstance(idx, tuple):    # the rays split across the views, plain draws
             # a stack of views, not an index tensor: no host-to-device copy
@@ -754,7 +785,7 @@ class Trainer:
             view = torch.stack([images[i] for i in idx])
             pix = torch.gather(view, 1, rays["inds"][..., None].expand(-1, -1, view.shape[-1]))
             rays_o, rays_d = rays["rays_o"].reshape(-1, 3), rays["rays_d"].reshape(-1, 3)
-            pix = self._pixels(pix.reshape(-1, view.shape[-1]))
+            pix = self._pixels(pix.reshape(-1, view.shape[-1]), top)
         else:
             pose = poses[idx][None]
             if sched.use_error_map:     # importance sampling from the image's error map
@@ -769,7 +800,7 @@ class Trainer:
             else:
                 rays = sampled_rays(self.generator, pose, dataset.intrinsics, H, W, N)
             rays_o, rays_d, inds = rays["rays_o"][0], rays["rays_d"][0], rays["inds"][0]
-            pix = self._pixels(images[idx][inds])
+            pix = self._pixels(images[idx][inds], top)
         n = pix.shape[0]      # patches round the ray count down
         if dataset.C == 4 and self.cfg.bg_radius <= 0:
             if opt.alpha_bg_mode == "white":
@@ -781,13 +812,14 @@ class Trainer:
         else:       # the background net draws the background: the alpha is unused
             bg = torch.ones((n, 3), device=self.device)
             gt_rgb, alpha_mask = pix[..., :3], None
-        noise = strat_noise = None
+        noise = strat_noise = volsdf = None
         frame = {}
         if not self.use_grid:       # the shell's jitter and the frame's conditioning
             noise = torch.rand((n, SPHERE_STEPS), generator=self.generator, device=self.device)
             row = cond[idx]
             frame = dict(material=row[:5], env_index=row[5].long(),
-                         r_images=None if r_all is None else self._pixels(r_all[idx][inds]))
+                         r_images=None if r_all is None else self._pixels(
+                             r_all[idx][inds], pixel_max(dataset.r_images.dtype)))
         elif opt.stratified_sampling:     # jitter the samples, not the march
             if sched.indir_ref:         # one draw a pass, the secondary at its budget
                 k2 = self.indirect_options(self._K, sched).indir_num_samples
@@ -799,33 +831,55 @@ class Trainer:
         elif not sched.error_bound:       # VolSDF draws its own jitter
             shape = (3, n) if sched.indir_ref else (n,)
             noise = torch.rand(shape, generator=self.generator, device=self.device)
+        elif self.mesh is not None and not sched.indir_ref:
+            # the global batch's VolSDF draws, in the order the render makes them
+            volsdf = volsdf_draws(self.volsdf_options(), n, self.generator, self.device)
+        if self.mesh is not None:         # this rank's share of the rays
+            sl = ray_sharded(self.mesh, n)
+            rays_o, rays_d, gt_rgb, bg, alpha_mask = shard_rays(
+                self.mesh, rays_o, rays_d, gt_rgb, bg, alpha_mask)
+            if noise is not None:     # [n], [n, 12] (sphere) or [3, n] (one a pass)
+                noise = noise[:, sl] if self.use_grid and noise.dim() == 2 else noise[sl]
+            if strat_noise is not None:
+                strat_noise = ([t[sl] for t in strat_noise] if isinstance(strat_noise, list)
+                               else strat_noise[sl])
+            if frame.get("r_images") is not None:
+                frame["r_images"] = frame["r_images"][sl]
+            if volsdf is not None:
+                volsdf = {k: v if k == "perm" else v[sl] for k, v in volsdf.items()}
 
         loss, out, terms = self.forward_loss(rays_o, rays_d, gt_rgb, bg, alpha_mask,
                                              K=self._K, sched=sched, noise=noise,
-                                             strat_noise=strat_noise, **frame)
+                                             strat_noise=strat_noise, volsdf_draws=volsdf,
+                                             **frame)
         loss.backward()
         self._apply_update()
         if sched.use_error_map:      # the per-ray EMA of the image's error (:547-555)
-            err = (out["image"].detach() - gt_rgb).abs().mean(dim=-1)
+            err = global_from_local(self.mesh, (out["image"].detach() - gt_rgb).abs().mean(dim=-1))
             self.error_map[idx] = update_error_row(self.error_map[idx],
                                                    rays["inds_coarse"][0], err)
         extra = {}
         if "counts" in out:       # a march's sample count (VolSDF has none)
-            mc = out["counts"].float().mean()
+            mc = self._reduce.mean(out["counts"].float())
             prev = torch.as_tensor(self.mean_count, dtype=torch.float64, device=self.device)
             self.mean_count = torch.where(prev < 0, mc.double(),
                                           0.9 * prev + 0.1 * mc.double())
             extra["mean_count"] = mc
         self.global_step += 1
         if "renv_mask" in out:     # share of the marched samples the renv gate opens to
-            extra["renv_open"] = (out["renv_mask"].sum() / out["mask"].sum().clamp_min(1)).detach()
+            extra["renv_open"] = (self._reduce.sum(out["renv_mask"])
+                                  / self._reduce.sum(out["mask"]).clamp_min(1)).detach()
         return {**terms, **extra, "loss": loss.detach(), "notfinite": self.notfinite.clone(),
                 "K": self._K, "index": idx}
 
-    def _pixels(self, pix: torch.Tensor) -> torch.Tensor:
-        """uint8 pixels as floats in [0, 1], the colour linearised under
-        ``color_space=linear`` (``trainer.py:437-455``)."""
-        pix = pix.float() / 255.0
+    def _pixels(self, pix: torch.Tensor, top: int = 255) -> torch.Tensor:
+        """Pixels as floats in [0, 1], the colour linearised under
+        ``color_space=linear`` (``trainer.py:437-455``): integers divided by
+        ``top``, the largest value of the decoded image's dtype (255 for
+        uint8, 65535 for uint16, 1 for 1-bit grey); floats (an
+        ``fp16_preload`` copy) are already divided.  The JAX step divides
+        every integer image by 255 (ROADMAP, "Known divergences")."""
+        pix = pix.float() if pix.is_floating_point() else pix.float() / top
         if self.opt.color_space == "linear":
             pix = torch.cat([srgb_to_linear(pix[..., :3]), pix[..., 3:]], dim=-1)
         return pix
@@ -844,8 +898,21 @@ class Trainer:
         ``r_images`` [N, C] (linear; the JAX eval passes none, so that the
         specular colour of a ``train_renv`` model then comes from the env
         branch, ``network.py:588-592``); ``env_rot_radian`` turns the
-        environment about the y axis."""
+        environment about the y axis.  Over a process group each rank
+        renders its share of the rays (the last ray repeated to an equal
+        share) and the shares are all-gathered."""
         net = self.ema_net if use_ema else self.net
+        n_rays = rays_o.shape[0]
+        if self.mesh is not None:
+            world = self.mesh.world
+            pad = -n_rays % world
+
+            def share(t):
+                if t is None:
+                    return None
+                t = torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) if pad else t
+                return t[ray_sharded(self.mesh, n_rays + pad)]
+            rays_o, rays_d, r_images = share(rays_o), share(rays_d), share(r_images)
         opt = self.opt
         chunk = opt.eval_ray_chunk or 4096
         keep = ("image", "depth", "weights_sum", "normal_image", "diffuse_image",
@@ -882,7 +949,7 @@ class Trainer:
                 for k in keep:
                     if k in res:
                         parts.setdefault(k, []).append(res[k])
-        return {k: torch.cat(v) for k, v in parts.items()}
+        return {k: global_from_local(self.mesh, torch.cat(v))[:n_rays] for k, v in parts.items()}
 
     def render_image(self, pose, intrinsics, H: int, W: int, *, use_ema: bool = True,
                      bg_color: float = 1.0, material=None, env_index=0,
@@ -894,8 +961,9 @@ class Trainer:
         rays_o, rays_d = full_image_rays(pose[None], intrinsics, H, W)
         r = None
         if r_image is not None:
-            r = self._pixels(torch.as_tensor(np.asarray(r_image), device=self.device)
-                             .reshape(H * W, -1))
+            r_image = np.asarray(r_image)
+            r = self._pixels(torch.as_tensor(r_image, device=self.device).reshape(H * W, -1),
+                             pixel_max(r_image.dtype))
         res = self.render_rays(rays_o[0], rays_d[0], use_ema=use_ema, bg_color=bg_color,
                                material=material, env_index=env_index, r_images=r,
                                env_rot_radian=env_rot_radian)
@@ -904,10 +972,11 @@ class Trainer:
     def evaluate(self, dataset, *, max_images: int = 8, use_ema: bool = True,
                  track_best: bool = True, indices=None, env_rot_degree_range=None,
                  dump_dir: Optional[str] = None) -> float:
-        """PSNR and SSIM of the renders of a split's first ``max_images``
+        """PSNR, SSIM and LPIPS of the renders of a split's first ``max_images``
         views (or of ``indices``) against its images, on the test-time
-        background (``trainer.py:817-904``; LPIPS is not ported yet).  A
-        split without images (a colmap test path) is rendered, not scored,
+        background (``trainer.py:817-904``; one :class:`LPIPSMeter` a
+        trainer, on its device, its kind in ``lpips_kind``).  A split
+        without images (a colmap test path) is rendered, not scored,
         and tracks no best.  ``env_rot_degree_range`` ``(d0, d1, k)`` renders
         each view again at ``k`` env rotations (not scored); ``dump_dir``
         receives each render's images (:meth:`_dump_visuals`).  The results
@@ -915,6 +984,10 @@ class Trainer:
         the ``best`` checkpoint (without optimizer state).  Returns the mean
         PSNR."""
         psnr_meter, ssim_meter = PSNRMeter(), SSIMMeter()
+        if self._lpips_meter is None:
+            self._lpips_meter = LPIPSMeter(device=self.device)
+        lpips_meter = self._lpips_meter
+        lpips_meter.clear()
         idxs = list(indices) if indices else list(range(min(len(dataset), max_images)))
         has_gt = getattr(dataset, "images", None) is not None
         track_best = track_best and has_gt
@@ -929,16 +1002,21 @@ class Trainer:
                     pred, gt = eval_pair(res, dataset, i, self.opt)
                     psnr_meter.update(pred, gt)
                     ssim_meter.update(pred, gt)
+                    lpips_meter.update(pred, gt)
                 if dump_dir is not None:
                     self._dump_visuals(res, srgb_image(res, self.opt), dump_dir,
                                        f"{i:03d}" + (f"_rot{ri}" if rot is not None else ""))
         psnr = psnr_meter.measure()
+        lpips = lpips_meter.measure() if lpips_meter.N else None
         self.stats["results"].append({"psnr": psnr, "ssim": ssim_meter.measure(),
-                                      "lpips": None, "lpips_kind": None, "epoch": self.epoch})
+                                      "lpips": lpips, "lpips_kind": lpips_meter.kind,
+                                      "epoch": self.epoch})
         best = self.stats.get("best_result")
         if track_best and (best is None or psnr > best):
             self.stats["best_result"] = psnr
             self.stats["best_result_ssim"] = ssim_meter.measure()
+            if lpips is not None:
+                self.stats["best_result_lpips"] = lpips
             self.save_checkpoint(name="best", full=False)
         return psnr
 
@@ -997,8 +1075,13 @@ class Trainer:
         Epoch checkpoints rotate, ``max_keep_ckpt`` of them kept; ``best``
         is never rotated, nor is a file outside this workspace's
         ``checkpoints/`` (a resumed ``stats["ckpts"]`` names the files of the
-        run that wrote it).  Returns the path."""
+        run that wrote it).  Over a process group only rank 0 writes.
+        Returns the path."""
         name = name or f"ep{self.epoch:04d}"
+        directory = os.path.join(self.workspace, "checkpoints")
+        path = os.path.join(directory, f"{name}.ckpt")
+        if self.rank != 0:      # rank 0 writes for the group
+            return path
         g = self.grid
         payload = {
             "epoch": self.epoch, "global_step": self.global_step, "iters": self.opt.iters,
@@ -1011,9 +1094,7 @@ class Trainer:
             payload["error_map"] = self.error_map.cpu().numpy()
         if full:
             payload["torch_optimizer"] = self.optimizer.state_dict()
-        directory = os.path.join(self.workspace, "checkpoints")
         os.makedirs(directory, exist_ok=True)
-        path = os.path.join(directory, f"{name}.ckpt")
         with open(path, "wb") as f:
             pickle.dump(payload, f)
         if name != "best":
@@ -1119,7 +1200,7 @@ def eval_pair(res: Dict[str, np.ndarray], dataset, i: int, opt: Options):
     clipped to [0, 1], the image composited on the test-time background."""
     bg = eval_bg(opt)
     pred = srgb_image(res, opt)
-    gt = dataset.images[i].astype(np.float32) / 255.0
+    gt = dataset.images[i].astype(np.float32) / pixel_max(dataset.images.dtype)
     if gt.shape[-1] == 4:
         gt = gt[..., :3] * gt[..., 3:] + bg * (1.0 - gt[..., 3:])
     return np.clip(pred, 0.0, 1.0), gt

@@ -105,3 +105,23 @@ def test_fallback_warns_once_and_marches_dense(bound, H, steps, capsys):
     dense = tmarch.march_rays(*args, **kw)
     for a, b in zip(first, dense):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("max_steps", [64, 256])
+def test_dense_march_noise_step_is_clipped_as_in_jax(max_steps):
+    """The perturbed start moves by ``clip(t0 * dt_gamma, dt_min, dt_max)``
+    of the noise, as in JAX: with fewer than ``grid_size`` steps on one
+    cascade dt_min exceeds dt_max, and the clip gives dt_max (the tiny CP
+    step's 64 steps on a 128 grid)."""
+    H, bound = 128, 1.0
+    bitfield = np.random.default_rng(3).uniform(size=(1, H ** 3)) < 0.3
+    o, d, nears, fars = _rays(bound)
+    key = jax.random.PRNGKey(5)
+    ref = jmarch.march_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(nears),
+                            jnp.asarray(fars), jnp.asarray(bitfield), bound=bound, grid_size=H,
+                            max_steps=max_steps, num_samples=8, early_stop_steps=8,
+                            perturb_key=key)
+    ours = tmarch.march_rays(T(o), T(d), T(nears), T(fars), T(bitfield), bound=bound,
+                             grid_size=H, max_steps=max_steps, num_samples=8,
+                             early_stop_steps=8, noise=T(jax.random.uniform(key, (N,))))
+    _assert_same(ours, ref)

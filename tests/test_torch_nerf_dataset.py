@@ -123,6 +123,10 @@ def test_decoder_matches_pil_on_every_colour_type_and_filter(ctype, tmp_path):
 
 @pytest.mark.parametrize("kind", ["palette", "16-bit", "interlaced", "bad crc", "not a png"])
 def test_decoder_refuses_every_other_kind(kind):
+    """Malformed files: a palette image without PLTE, a 16-bit header over
+    8-bit rows, an interlaced header over one pass's rows (the decoder reads
+    each of these kinds when the file is whole, tests/test_torch_png_formats.py),
+    a bad CRC and another format."""
     img = _image(4, 4, 2, seed=0)
     good = encode_png(img, 2, [0])
     data = {"palette": lambda: encode_png(img[..., 0], 3, [0]),
@@ -194,8 +198,14 @@ def test_pose_helpers_match_jax():
     poses = dataset("port", "synth_shiny3", "test").poses
     np.testing.assert_allclose(tds.interpolate_test_poses(poses[0], poses[3], 9),
                                jds.interpolate_test_poses(poses[0], poses[3], 9), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="process_shard"):
-        tds.NeRFDataset(os.path.join(ROOT, "data", "synth_shiny3"), "val", process_shard=True)
+    # process_shard with no process group: rank 0 of 1 keeps every frame, as
+    # the JAX loader's does in one process (the world-2 case:
+    # tests/test_torch_parallel.py)
+    root = os.path.join(ROOT, "data", "synth_shiny3")
+    ours = tds.NeRFDataset(root, "val", scale=0.8, downscale=4, process_shard=True)
+    ref = jds.NeRFDataset(root, "val", scale=0.8, downscale=4, process_shard=True)
+    np.testing.assert_array_equal(ours.images, ref.images)
+    np.testing.assert_array_equal(ours.poses, ref.poses)
 
 
 def test_mark_untrained_matches_jax_on_the_shiny3_train_poses():
