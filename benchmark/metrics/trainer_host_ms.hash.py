@@ -1,0 +1,4 @@
+"""Median host time of hash_train's train_step calls, ms
+(readers.trainer_host_ms); moves train_rays_per_s.hash."""
+
+from benchmark.readers import trainer_host_ms as read  # noqa: F401
