@@ -1,0 +1,4 @@
+"""Median device ms of hash_train's encode spans under render a traced step,
+the forward encode (spans.encode_ms); moves train_rays_per_s.hash."""
+
+from benchmark.spans import encode_ms as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""Median device ms of cp_train's march spans under render a traced step
+(spans.march_ms); moves train_rays_per_s.cp."""
+
+from benchmark.spans import march_ms as read  # noqa: F401

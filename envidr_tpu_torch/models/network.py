@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from envidr_tpu_torch import obs
 from envidr_tpu_torch.geometry.rays import reflect_dir
 from envidr_tpu_torch.models.mlp import (
     apply_mlp, apply_stacked_mlp, feat_act, init_linear, init_mlp, softplus_beta, stack_mlps,
@@ -438,14 +439,16 @@ class NeRFNetwork(nn.Module):
         cfg = self.cfg
         if cfg.encoding_pos == "frequency":
             return freq_encode(xyz, degree=cfg.multires)
-        if cfg.encoding_pos == "cp":
-            x = cp_encode_from_world(xyz, self.encoder.tables(), self.cp_spec, bound=cfg.bound)
-        else:
-            x = hash_encode_from_world(xyz, self.encoder.embeddings, cfg.hash_spec,
-                                       bound=cfg.bound, gate=gate)
-        if level_mask is not None:
-            # coarse-to-fine level gating (network.py:390-393)
-            x = x * torch.repeat_interleave(level_mask, cfg.level_dim)
+        with obs.span("encode"):
+            if cfg.encoding_pos == "cp":
+                x = cp_encode_from_world(xyz, self.encoder.tables(), self.cp_spec,
+                                         bound=cfg.bound)
+            else:
+                x = hash_encode_from_world(xyz, self.encoder.embeddings, cfg.hash_spec,
+                                           bound=cfg.bound, gate=gate)
+            if level_mask is not None:
+                # coarse-to-fine level gating (network.py:390-393)
+                x = x * torch.repeat_interleave(level_mask, cfg.level_dim)
         return x
 
     def material_features(self, material, like: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,9 @@ launcher per instantiation, which takes device pointers, sizes and a stream
 and returns its ``cudaError_t``.  ``nvcc`` compiles a source at first use
 into ``envidr_tpu_torch/_build/`` (keyed by a hash of the source, the
 headers it includes with quotes and the flags) and the library is loaded
-with ctypes.  Every :class:`CudaLibrary` counts the launches made through it
-and is listed in :data:`LIBRARIES`.
+with ctypes.  Every :class:`CudaLibrary` is listed in :data:`LIBRARIES` and
+counts the launches made through it as the counter ``launches.<symbol>`` of
+``obs.COUNTERS``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
+
+from envidr_tpu_torch import obs
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,9 +69,17 @@ class CudaLibrary:
         self.source = Path(source)
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
+        self.counter = f"launches.{symbol}"
         self._fn = None
         LIBRARIES.append(self)
+
+    @property
+    def launches(self) -> int:
+        return obs.COUNTERS.get(self.counter, 0)
+
+    @launches.setter
+    def launches(self, n: int):
+        obs.COUNTERS[self.counter] = n
 
     def library_path(self) -> Path:
         h = hashlib.sha256()
@@ -136,4 +147,4 @@ def launch(lib: CudaLibrary, name: str, device: torch.device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    lib.launches += 1
+    obs.count(lib.counter)

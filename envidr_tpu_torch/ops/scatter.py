@@ -26,7 +26,7 @@ not tile).  Bound: bytes, ``B*(4 + 4W)`` read and ``S*W*4`` written.
 Every entry point is ``csrc/scatter_rows.cu``: the output zeroed level by
 level just before one 16-byte vector atomic per quarter row adds into it.
 A launcher call makes one memset and one kernel launch a level and counts
-as one launch.
+as one launch, inside a span of the entry point's name (``obs.py``).
 
 Build and launch: ``ops/_cuda.py``.  A CUDA tensor always takes the kernel;
 if the build or the launch fails the wrapper raises.  A CPU tensor takes the
@@ -40,6 +40,7 @@ from pathlib import Path
 
 import torch
 
+from envidr_tpu_torch import obs
 from envidr_tpu_torch.ops._cuda import CudaLibrary, launch, on_card
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "scatter_rows.cu"
@@ -62,8 +63,9 @@ def _launch_scatter(lib: CudaLibrary, name: str, idx: torch.Tensor, rows: torch.
         raise ValueError(f"{name}: {B} rows into {S} slots exceeds 32-bit indices")
     idx = idx.to(torch.int32).contiguous()
     rows = rows.contiguous()
-    launch(lib, name, rows.device, idx.data_ptr(), rows.data_ptr(), out.data_ptr(),
-           L, B, S, W)
+    with obs.span(name):
+        launch(lib, name, rows.device, idx.data_ptr(), rows.data_ptr(), out.data_ptr(),
+               L, B, S, W)
     return out
 
 

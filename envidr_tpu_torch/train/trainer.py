@@ -101,7 +101,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from envidr_tpu_torch import resolve_device
+from envidr_tpu_torch import obs, resolve_device
 from envidr_tpu_torch.config import Options
 from envidr_tpu_torch.data.png import pixel_max, write_png
 from envidr_tpu_torch.geometry.rays import (
@@ -450,11 +450,12 @@ class Trainer:
             return net.sdf_to_sigma(geo["sdf"]) if self.cfg.use_sdf else geo["sigma"]
 
         fraction = 1 if (full or self.grid.iter_density < 16) else 4
-        with torch.no_grad():
-            self.grid = update_grid(self.grid, self.grid_spec, density_fn,
-                                    self.generator, fraction=fraction)
-        # every rank drew the same cells; rank 0's grid makes them bit-equal
-        replicate_tree(self.mesh, self.grid[:3])
+        with obs.span("grid.refresh"):
+            with torch.no_grad():
+                self.grid = update_grid(self.grid, self.grid_spec, density_fn,
+                                        self.generator, fraction=fraction)
+            # every rank drew the same cells; rank 0's grid makes them bit-equal
+            replicate_tree(self.mesh, self.grid[:3])
 
     def mark_untrained_grid(self, poses, intrinsics):
         """Mark the grid cells that no camera of ``poses`` [B, 4, 4] sees as
@@ -494,7 +495,8 @@ class Trainer:
                 p.grad = None
             losses.append(loss.detach())
         self.ema_net.load_state_dict(self.net.state_dict())
-        return torch.stack(losses).tolist()
+        with obs.host_sync():
+            return torch.stack(losses).tolist()
 
     # ---------------------------------------------------------- budgets
 
@@ -506,7 +508,8 @@ class Trainer:
         cap = sched.early_stop_steps if sched.early_stop_steps > 0 \
             else min(sched.max_steps, 1024)
         if mean_count is None:
-            mean_count = float(self.mean_count)          # the epoch's one read
+            with obs.host_sync():                        # the epoch's one read
+                mean_count = float(self.mean_count)
         est = cap if mean_count <= 0 else int(mean_count * 1.5) + 8
         # floor: a hard-pruned grid must not starve the thin surface shell
         floor = min(max(16, self.opt.min_samples_budget), max(cap, 16))
@@ -522,7 +525,8 @@ class Trainer:
         ms = sched.max_steps if sched else self.opt.max_steps
         cap = ess if ess > 0 else min(ms, 1024)
         K = min(K, max(cap, 16))
-        mean_count = float(self.mean_count)
+        with obs.host_sync():
+            mean_count = float(self.mean_count)
         if self.opt.samples_budget <= 0 and mean_count > 0:
             est = min(int(mean_count * 1.5) + 8, cap)
             k = max(16, self.opt.min_samples_budget)
@@ -587,7 +591,9 @@ class Trainer:
         keys = [k for k, v in steps[0].items() if torch.is_tensor(v) and k != "notfinite"]
         means = torch.stack([torch.stack([m[k].double() for k in keys]) for m in steps]).mean(0)
         read = torch.cat([means, self.notfinite.double()[None],
-                          torch.as_tensor(self.mean_count, dtype=torch.float64)[None]]).tolist()
+                          torch.as_tensor(self.mean_count, dtype=torch.float64)[None]])
+        with obs.host_sync():
+            read = read.tolist()
         avg = dict(zip(keys, read[:len(keys)]))
         avg["notfinite"] = read[len(keys)]
         self.host_mean_count = read[-1]
@@ -608,7 +614,8 @@ class Trainer:
         for i in range(n_steps):
             m = self._train_on(dataset, i % len(dataset) if B == 1 else
                                tuple((i * B + b) % len(dataset) for b in range(B)))
-        return {"loss": float(m["loss"]), "steps": n_steps}
+        with obs.host_sync():
+            return {"loss": float(m["loss"]), "steps": n_steps}
 
     def _refreshes_grid(self) -> bool:
         every = self._sched.update_extra_interval
@@ -719,18 +726,19 @@ class Trainer:
         else:
             out = render_scene(self.net, ropts, self.grid.bitfield, rays_o, rays_d, bg,
                                self.aabb, **shared)
-        beta = neus_inv_s = None
-        if laplace:          # the loss-side beta (trainer.py:515-518)
-            beta = density_ops.laplace_beta(self.net.sdf_density.beta, w["_beta_min"],
-                                            cfg.beta_max)
-            if beta_cap is not None:
-                beta = torch.minimum(beta, beta_cap)
-        elif cfg.use_sdf:
-            neus_inv_s = torch.clamp(torch.exp(self.net.sdf_density.variance * 10.0),
-                                     1e-6, 1e6)
-        loss, terms = compute_losses(out, gt_rgb, flags, w, alpha_mask=alpha_mask, beta=beta,
-                                     neus_inv_s=neus_inv_s, roughness=out.get("roughness"),
-                                     reduce=self._reduce)
+        with obs.span("loss"):
+            beta = neus_inv_s = None
+            if laplace:          # the loss-side beta (trainer.py:515-518)
+                beta = density_ops.laplace_beta(self.net.sdf_density.beta, w["_beta_min"],
+                                                cfg.beta_max)
+                if beta_cap is not None:
+                    beta = torch.minimum(beta, beta_cap)
+            elif cfg.use_sdf:
+                neus_inv_s = torch.clamp(torch.exp(self.net.sdf_density.variance * 10.0),
+                                         1e-6, 1e6)
+            loss, terms = compute_losses(out, gt_rgb, flags, w, alpha_mask=alpha_mask,
+                                         beta=beta, neus_inv_s=neus_inv_s,
+                                         roughness=out.get("roughness"), reduce=self._reduce)
         return loss, out, terms
 
     def _apply_update(self):
@@ -758,8 +766,10 @@ class Trainer:
         ``refresh_grid=False`` skips the grid refresh that falls on this step
         (a benchmark times the steps alone, as ``bench.py`` does).  In sphere
         mode the frame's material, env index and mirror-sphere image
-        condition the render."""
-        return self._train_on(dataset, self._next_index(dataset), refresh_grid)
+        condition the render.  The step is the root span ``train_step``
+        (``obs.py``), its id the step's ``global_step``."""
+        with obs.span("train_step", self.global_step):
+            return self._train_on(dataset, self._next_index(dataset), refresh_grid)
 
     def _train_on(self, dataset, idx, refresh_grid: bool = True) -> Dict[str, object]:
         """One step on view ``idx`` of ``dataset``, or on the views of a
@@ -769,91 +779,94 @@ class Trainer:
         sched, opt = self._sched, self.opt
         if refresh_grid and self._refreshes_grid():
             self.update_extra_state()
-        if self._images is None or self._images[0] is not dataset:
-            sphere = not self.use_grid
-            self._images = (dataset, dataset.device_images(self.device),
-                            torch.as_tensor(dataset.poses, device=self.device),
-                            dataset.conditioning(self.device) if sphere else None,
-                            dataset.device_r_images(self.device) if sphere else None,
-                            pixel_max(dataset.images.dtype))
-        _, images, poses, cond, r_all, top = self._images
-        H, W, N = dataset.H, dataset.W, sched.num_rays
-        if isinstance(idx, tuple):    # the rays split across the views, plain draws
-            # a stack of views, not an index tensor: no host-to-device copy
-            rays = sampled_rays(self.generator, torch.stack([poses[i] for i in idx]),
-                                dataset.intrinsics, H, W, N // len(idx))
-            view = torch.stack([images[i] for i in idx])
-            pix = torch.gather(view, 1, rays["inds"][..., None].expand(-1, -1, view.shape[-1]))
-            rays_o, rays_d = rays["rays_o"].reshape(-1, 3), rays["rays_d"].reshape(-1, 3)
-            pix = self._pixels(pix.reshape(-1, view.shape[-1]), top)
-        else:
-            pose = poses[idx][None]
-            if sched.use_error_map:     # importance sampling from the image's error map
-                rays = error_map_rays(self.generator, pose, dataset.intrinsics, H, W, N,
-                                      self.error_map[idx][None])
-            elif opt.patch_size > 1:    # square patches (utils.py:565)
-                rays = patch_rays(self.generator, pose, dataset.intrinsics, H, W, N,
-                                  opt.patch_size)
-            elif opt.center_crop > 0:
-                rays = center_crop_rays(self.generator, pose, dataset.intrinsics, H, W, N,
-                                        opt.center_crop, opt.center_crop_ratio)
+        with obs.span("rays"):
+            if self._images is None or self._images[0] is not dataset:
+                sphere = not self.use_grid
+                self._images = (dataset, dataset.device_images(self.device),
+                                torch.as_tensor(dataset.poses, device=self.device),
+                                dataset.conditioning(self.device) if sphere else None,
+                                dataset.device_r_images(self.device) if sphere else None,
+                                pixel_max(dataset.images.dtype))
+            _, images, poses, cond, r_all, top = self._images
+            H, W, N = dataset.H, dataset.W, sched.num_rays
+            if isinstance(idx, tuple):    # the rays split across the views, plain draws
+                # a stack of views, not an index tensor: no host-to-device copy
+                rays = sampled_rays(self.generator, torch.stack([poses[i] for i in idx]),
+                                    dataset.intrinsics, H, W, N // len(idx))
+                view = torch.stack([images[i] for i in idx])
+                pix = torch.gather(view, 1, rays["inds"][..., None].expand(-1, -1, view.shape[-1]))
+                rays_o, rays_d = rays["rays_o"].reshape(-1, 3), rays["rays_d"].reshape(-1, 3)
+                pix = self._pixels(pix.reshape(-1, view.shape[-1]), top)
             else:
-                rays = sampled_rays(self.generator, pose, dataset.intrinsics, H, W, N)
-            rays_o, rays_d, inds = rays["rays_o"][0], rays["rays_d"][0], rays["inds"][0]
-            pix = self._pixels(images[idx][inds], top)
-        n = pix.shape[0]      # patches round the ray count down
-        if dataset.C == 4 and self.cfg.bg_radius <= 0:
-            if opt.alpha_bg_mode == "white":
+                pose = poses[idx][None]
+                if sched.use_error_map:     # importance sampling from the image's error map
+                    rays = error_map_rays(self.generator, pose, dataset.intrinsics, H, W, N,
+                                          self.error_map[idx][None])
+                elif opt.patch_size > 1:    # square patches (utils.py:565)
+                    rays = patch_rays(self.generator, pose, dataset.intrinsics, H, W, N,
+                                      opt.patch_size)
+                elif opt.center_crop > 0:
+                    rays = center_crop_rays(self.generator, pose, dataset.intrinsics, H, W, N,
+                                            opt.center_crop, opt.center_crop_ratio)
+                else:
+                    rays = sampled_rays(self.generator, pose, dataset.intrinsics, H, W, N)
+                rays_o, rays_d, inds = rays["rays_o"][0], rays["rays_d"][0], rays["inds"][0]
+                pix = self._pixels(images[idx][inds], top)
+            n = pix.shape[0]      # patches round the ray count down
+            if dataset.C == 4 and self.cfg.bg_radius <= 0:
+                if opt.alpha_bg_mode == "white":
+                    bg = torch.ones((n, 3), device=self.device)
+                else:
+                    bg = torch.rand((n, 3), generator=self.generator, device=self.device)
+                gt_rgb = pix[..., :3] * pix[..., 3:] + bg * (1.0 - pix[..., 3:])
+                alpha_mask = pix[..., 3]
+            else:       # the background net draws the background: the alpha is unused
                 bg = torch.ones((n, 3), device=self.device)
-            else:
-                bg = torch.rand((n, 3), generator=self.generator, device=self.device)
-            gt_rgb = pix[..., :3] * pix[..., 3:] + bg * (1.0 - pix[..., 3:])
-            alpha_mask = pix[..., 3]
-        else:       # the background net draws the background: the alpha is unused
-            bg = torch.ones((n, 3), device=self.device)
-            gt_rgb, alpha_mask = pix[..., :3], None
-        noise = strat_noise = volsdf = None
-        frame = {}
-        if not self.use_grid:       # the shell's jitter and the frame's conditioning
-            noise = torch.rand((n, SPHERE_STEPS), generator=self.generator, device=self.device)
-            row = cond[idx]
-            frame = dict(material=row[:5], env_index=row[5].long(),
-                         r_images=None if r_all is None else self._pixels(
-                             r_all[idx][inds], pixel_max(dataset.r_images.dtype)))
-        elif opt.stratified_sampling:     # jitter the samples, not the march
-            if sched.indir_ref:         # one draw a pass, the secondary at its budget
-                k2 = self.indirect_options(self._K, sched).indir_num_samples
-                strat_noise = [torch.rand((n, k), generator=self.generator, device=self.device)
-                               for k in (self._K, k2, self._K)]
-            else:
-                strat_noise = torch.rand((n, self._K), generator=self.generator,
-                                         device=self.device)
-        elif not sched.error_bound:       # VolSDF draws its own jitter
-            shape = (3, n) if sched.indir_ref else (n,)
-            noise = torch.rand(shape, generator=self.generator, device=self.device)
-        elif self.mesh is not None and not sched.indir_ref:
-            # the global batch's VolSDF draws, in the order the render makes them
-            volsdf = volsdf_draws(self.volsdf_options(), n, self.generator, self.device)
-        if self.mesh is not None:         # this rank's share of the rays
-            sl = ray_sharded(self.mesh, n)
-            rays_o, rays_d, gt_rgb, bg, alpha_mask = shard_rays(
-                self.mesh, rays_o, rays_d, gt_rgb, bg, alpha_mask)
-            if noise is not None:     # [n], [n, 12] (sphere) or [3, n] (one a pass)
-                noise = noise[:, sl] if self.use_grid and noise.dim() == 2 else noise[sl]
-            if strat_noise is not None:
-                strat_noise = ([t[sl] for t in strat_noise] if isinstance(strat_noise, list)
-                               else strat_noise[sl])
-            if frame.get("r_images") is not None:
-                frame["r_images"] = frame["r_images"][sl]
-            if volsdf is not None:
-                volsdf = {k: v if k == "perm" else v[sl] for k, v in volsdf.items()}
+                gt_rgb, alpha_mask = pix[..., :3], None
+            noise = strat_noise = volsdf = None
+            frame = {}
+            if not self.use_grid:       # the shell's jitter and the frame's conditioning
+                noise = torch.rand((n, SPHERE_STEPS), generator=self.generator, device=self.device)
+                row = cond[idx]
+                frame = dict(material=row[:5], env_index=row[5].long(),
+                             r_images=None if r_all is None else self._pixels(
+                                 r_all[idx][inds], pixel_max(dataset.r_images.dtype)))
+            elif opt.stratified_sampling:     # jitter the samples, not the march
+                if sched.indir_ref:         # one draw a pass, the secondary at its budget
+                    k2 = self.indirect_options(self._K, sched).indir_num_samples
+                    strat_noise = [torch.rand((n, k), generator=self.generator, device=self.device)
+                                   for k in (self._K, k2, self._K)]
+                else:
+                    strat_noise = torch.rand((n, self._K), generator=self.generator,
+                                             device=self.device)
+            elif not sched.error_bound:       # VolSDF draws its own jitter
+                shape = (3, n) if sched.indir_ref else (n,)
+                noise = torch.rand(shape, generator=self.generator, device=self.device)
+            elif self.mesh is not None and not sched.indir_ref:
+                # the global batch's VolSDF draws, in the order the render makes them
+                volsdf = volsdf_draws(self.volsdf_options(), n, self.generator, self.device)
+            if self.mesh is not None:         # this rank's share of the rays
+                sl = ray_sharded(self.mesh, n)
+                rays_o, rays_d, gt_rgb, bg, alpha_mask = shard_rays(
+                    self.mesh, rays_o, rays_d, gt_rgb, bg, alpha_mask)
+                if noise is not None:     # [n], [n, 12] (sphere) or [3, n] (one a pass)
+                    noise = noise[:, sl] if self.use_grid and noise.dim() == 2 else noise[sl]
+                if strat_noise is not None:
+                    strat_noise = ([t[sl] for t in strat_noise] if isinstance(strat_noise, list)
+                                   else strat_noise[sl])
+                if frame.get("r_images") is not None:
+                    frame["r_images"] = frame["r_images"][sl]
+                if volsdf is not None:
+                    volsdf = {k: v if k == "perm" else v[sl] for k, v in volsdf.items()}
 
         loss, out, terms = self.forward_loss(rays_o, rays_d, gt_rgb, bg, alpha_mask,
                                              K=self._K, sched=sched, noise=noise,
                                              strat_noise=strat_noise, volsdf_draws=volsdf,
                                              **frame)
-        loss.backward()
-        self._apply_update()
+        with obs.span("backward"):
+            loss.backward()
+        with obs.span("update"):
+            self._apply_update()
         if sched.use_error_map:      # the per-ray EMA of the image's error (:547-555)
             err = global_from_local(self.mesh, (out["image"].detach() - gt_rgb).abs().mean(dim=-1))
             self.error_map[idx] = update_error_row(self.error_map[idx],
@@ -865,6 +878,8 @@ class Trainer:
             self.mean_count = torch.where(prev < 0, mc.double(),
                                           0.9 * prev + 0.1 * mc.double())
             extra["mean_count"] = mc
+            obs.count("march.slots", n * self._K)
+            obs.count_later("march.samples", mc, n)
         self.global_step += 1
         if "renv_mask" in out:     # share of the marched samples the renv gate opens to
             extra["renv_open"] = (self._reduce.sum(out["renv_mask"])
