@@ -9,8 +9,8 @@ seconds:
   build    nvcc build of every kernel source (one nvcc each, all started
            together), with the seconds of each or "cached"
   kernels  each kernel against its plain PyTorch version at the shape its
-           path gives it (the train step for scatter_add_rows, the
-           micro-benchmarks' shapes for the others), with CUDA-event times of
+           path gives it (the train step for scatter_add_rows and the CP
+           row pair, the micro-benchmarks' shapes for the others), with CUDA-event times of
            the kernel, the plain version and, where there is one, a single
            library call computing the same function, beside the bound (the
            kernel's median and mean of 20 launches), after the timer's floor
@@ -47,7 +47,8 @@ seconds:
   render_cp the repo's trained CP checkpoint (assets/neus_cp_long_best.ckpt)
            loaded by the port, val view 0 rendered at 400x400, PSNR against the
            analytic ground truth (white background) above 22 dB; launch counts
-           are read just after (no kernel lies on the CP path)
+           are read just after (of the csrc/ kernels the CP path runs only
+           the CP row pair, counted apart)
   lpips    the port's LPIPS (untrained AlexNet trunk, F.conv2d) of that render
            and its ground truth on the card against the same module on the
            CPU (relative difference, TF32 off, under LPIPS_CARD_RTOL), ms of
@@ -385,9 +386,16 @@ def kernel_libraries():
             ("scatter_rows_tiled<bf16>", scatter.TILED[torch.bfloat16])]
 
 
+def cp_rows_libraries():
+    """(name, CudaLibrary) of the CP row pair, which every CP path runs; kept
+    apart from kernel_libraries, whose counts the CP phases hold at 0."""
+    from envidr_tpu_torch.ops import cp_rows
+    return [("cp_rows_gather", cp_rows.GATHER), ("cp_rows_scatter", cp_rows.SCATTER)]
+
+
 def build_all():
     """One nvcc per source, all started together: {source stem: seconds|None}."""
-    by_source = {lib.source: lib for _, lib in kernel_libraries()}
+    by_source = {lib.source: lib for _, lib in kernel_libraries() + cp_rows_libraries()}
     with ThreadPoolExecutor(len(by_source)) as ex:
         secs = list(ex.map(lambda lib: lib.build(), by_source.values()))
     return {src.stem: s for src, s in zip(by_source, secs)}
@@ -558,6 +566,51 @@ def check_bench_kernels():
             FEW_ROWS_ATOL if acc == f32
             else (lambda ref: BF16_ACC_RTOL * float(ref.abs().max())),
             ("bench_gs4", rf"tiled pallas n=\d+ K=\d+ {str(acc)[6:]} *\(\d+MB\)")))
+    return out
+
+
+def check_cp_rows():
+    """Rows 9-10, the CP row pair at the CP train step's shapes
+    (tools/cp_rows_cases.py): N = 524,288 slots, 87% of them in runs of 28
+    at one row pair, three of the encoder's table sizes.  The scatter sums
+    in another f32 order than index_add_: within 2^-20 of the largest row's
+    sum of magnitudes (the cuda-marked test holds each element to its own
+    row's)."""
+    import torch
+    from envidr_tpu_torch.ops import cp_rows
+    from envidr_tpu_torch.tools import cp_rows_cases as cases
+
+    src = "envidr_tpu_torch/csrc/cp_rows.cu"
+    replaces = "none (ops/cp.py:_axis_feat's index_select pair and its index_add_s)"
+    N, rank = cases.N, cases.RANK
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dv0 = torch.randn(N, rank, device="cuda", generator=g)
+    dv1 = torch.randn(N, rank, device="cuda", generator=g)
+    out = []
+    for R in cases.ROWS:
+        i0 = cases.step_indices(R, generator=torch.Generator().manual_seed(R), device="cuda")
+        table = torch.randn(R, rank, device="cuda", generator=g)
+        gather_bytes, scatter_bytes = cases.bytes_moved(N, R, rank)
+        mags = cp_rows.scatter_pair_plain(dv0.abs(), dv1.abs(), i0, R)
+        out.append(check_kernel(
+            "9", "cp_rows_gather", src, replaces, f"table [{R},{rank}] f32, i0 [{N}]",
+            lambda: cp_rows.gather_pair(table, i0)[0],
+            lambda: cp_rows.gather_pair_plain(table, i0)[0],
+            ("index_select x2", lambda: (table.index_select(0, i0),
+                                         table.index_select(0, i0 + 1))),
+            gather_bytes, 0.0))
+        out.append(check_kernel(
+            "10", "cp_rows_scatter", src, replaces,
+            f"dv0, dv1 [{N},{rank}] f32, i0 [{N}] -> [{R},{rank}]",
+            lambda: cp_rows.scatter_pair(dv0, dv1, i0, R),
+            lambda: cp_rows.scatter_pair_plain(dv0, dv1, i0, R),
+            ("index_add_ x2", lambda: torch.zeros((R, rank), device="cuda")
+             .index_add_(0, i0, dv0).index_add_(0, i0 + 1, dv1)),
+            scatter_bytes, 2.0**-20 * float(mags.max())))
+        v1, p1 = cp_rows.gather_pair(table, i0)[1], cp_rows.gather_pair_plain(table, i0)[1]
+        if not torch.equal(v1, p1):
+            raise AssertionError(f"cp_rows_gather (R={R}): the second tap differs from "
+                                 "index_select")
     return out
 
 
@@ -792,9 +845,12 @@ def assert_widths(config: str, widths: dict, want: dict):
 def train_cp(libs):
     """synth_spheres_cp.ini at full width on the in-memory scene: 20 steps,
     the sync-free ones under sync debug mode "error".  Zeroes the launch
-    counts first; returns the trainer and the scene's options."""
+    counts first; every step must run the CP row pair, one scatter a table
+    (levels x 3) and at least as many gathers.  Returns the pair's launches
+    by name."""
     import numpy as np
     import torch
+    from envidr_tpu_torch import obs
     from envidr_tpu_torch.config import load_options, network_config
     from envidr_tpu_torch.data.synth_scene import SynthSpheres
     from envidr_tpu_torch.ops.marching import MARCH_PATHS
@@ -814,13 +870,24 @@ def train_cp(libs):
                   {**want, "neus": True, "coarse_march": True})
     data = SynthSpheres("train", scale=opt.scale)
     trainer = Trainer(opt, cfg)
-    for lib in libs.values():                        # the CP path starts here
+    pair = dict(cp_rows_libraries())
+    for lib in [*libs.values(), *pair.values()]:     # the CP path starts here
         lib.launches = 0
+    paths = {k: obs.COUNTERS.get(f"cp_rows.scatter.{k}", 0) for k in ("shared", "global")}
     MARCH_PATHS.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.update_extra_state()
     losses, step_ms, sync_free, ms = timed_steps(trainer, data, TRAIN_STEPS, "train_cp")
+    launches = {k: lib.launches for k, lib in pair.items()}
+    paths = {k: obs.COUNTERS.get(f"cp_rows.scatter.{k}", 0) - v for k, v in paths.items()}
+    tables = spec.num_levels * spec.input_dim
+    if (launches["cp_rows_scatter"] != tables * TRAIN_STEPS
+            or launches["cp_rows_gather"] < tables * TRAIN_STEPS
+            or sum(paths.values()) != launches["cp_rows_scatter"]):
+        raise AssertionError(f"train_cp: CP row pair launches {launches}, scatter paths "
+                             f"{paths}; expected {tables} scatters a step, as many gathers "
+                             "or more")
     m = ms[-1]
     ms_per_step = float(np.mean(step_ms[3:]))
     notfinite = int(trainer.notfinite)
@@ -834,7 +901,10 @@ def train_cp(libs):
           first_step_ms=step_ms[0], coarse_marches=MARCH_PATHS["coarse"],
           dense_marches=MARCH_PATHS["dense"],
           grid_occupied=float(trainer.grid.bitfield.float().mean()),
-          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+          cp_rows_launches=repr(" ".join(f"{k}:{v}" for k, v in launches.items())),
+          scatter_paths=repr(" ".join(f"{k}:{v}" for k, v in paths.items())))
+    return launches
 
 
 def render_cp(libs):
@@ -2491,6 +2561,7 @@ def main() -> int:
     rows = [check_scatter(cfg.hash_spec, B=opt.num_rays * K0, W=8 * cfg.level_dim)]
     launch_floor()
     rows += check_bench_kernels()
+    rows += check_cp_rows()
     bf16_accumulator_readings()
     edges = scatter_edges.run(log=lambda line: phase("kernels", "edge", line))
     phase("kernels", "edge shapes ok", checks=len(edges))
@@ -2543,7 +2614,7 @@ def main() -> int:
 
     phase("cp_parity", **check_cp_parity())
     phase("ours_parity", **check_cp_parity("scenes/synth_spheres_ours.ini", "ours_parity"))
-    train_cp(libs)
+    cp_launches = train_cp(libs)
     lpips_phase(*render_cp(libs), libs)
     fixtures_phase(train)
     trainer_ours, opt_ours = train_ours(libs)
@@ -2579,6 +2650,9 @@ def main() -> int:
     # and ends here; each table row takes the launches of its own bench rows
     for row in rows:
         bench_rows = row.pop("bench_rows")
+        if row["name"] in cp_launches:               # rows 9-10: train_cp's counts
+            row["launches"] = cp_launches[row["name"]]
+            continue
         if bench_rows is None:                       # row 1: the train path's count
             row["launches"] = train_launches[row["name"]]
             row["launches_by_path"] = {"train": row["launches"],

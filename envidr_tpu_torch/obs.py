@@ -68,6 +68,7 @@ class SpanRecord:
     device_ms: Optional[float] = None        # None without a card
     self_device_ms: Optional[float] = None   # device_ms less its children's
     counters: Optional[Dict[str, float]] = None   # a root's: what it counted
+    tag: object = None                       # what the caller gave to tell like spans apart
 
     @property
     def host_ms(self) -> Optional[float]:
@@ -138,10 +139,10 @@ def _on_warning(show, message, category, filename, lineno, file=None, line=None)
 
 
 class _Span:
-    __slots__ = ("name", "step", "index", "stack", "rf", "root_state")
+    __slots__ = ("name", "step", "tag", "index", "stack", "rf", "root_state")
 
-    def __init__(self, name: str, step: Optional[int]):
-        self.name, self.step = name, step
+    def __init__(self, name: str, step: Optional[int], tag):
+        self.name, self.step, self.tag = name, step, tag
         self.index = None
 
     def __enter__(self):
@@ -165,7 +166,7 @@ class _Span:
         rec.spans.append(SpanRecord(
             self.name, parent, i if up is None else up.root, 0 if up is None else up.depth + 1,
             self.step if up is None or self.step is not None else up.step,
-            threading.get_ident(), 0))
+            threading.get_ident(), 0, tag=self.tag))
         stack.append(i)
         self.stack = stack
         self.root_state = None
@@ -216,14 +217,15 @@ class _Span:
         return False
 
 
-def span(name: str, step: Optional[int] = None):
+def span(name: str, step: Optional[int] = None, tag=None):
     """A context marking one layer's work as ``name``; ``step`` names the
-    step a root belongs to (its children take their root's)."""
+    step a root belongs to (its children take their root's); ``tag`` is kept
+    with the span to tell spans of one name apart (a table's size)."""
     global _stale
     if not (_explicit or _profiler._is_profiler_enabled):
         _stale = True
         return _OFF
-    return _Span(name, step)
+    return _Span(name, step, tag)
 
 
 @contextlib.contextmanager

@@ -27,7 +27,10 @@ autograd's backward (and its double backward, for the eikonal term) rounds
 in the same places.  ``compute_dtype='float32'`` (either formulation) is the
 plain f32 gather-lerp.
 
-Every op has a double backward in torch (``index_select``, products, casts,
+The two table rows of a point are read by ``ops/cp_rows.py``'s autograd
+pair (on the card two CUDA kernels, a gather and its adjoint scatter; on the
+CPU ``index_select`` and ``index_add_``), which is differentiable to any
+order; every other op has a double backward in torch (products, casts,
 ``torch.where``), so the encoder is twice differentiable.  ``floor`` carries
 no gradient and ``frac = pos - i0`` carries d/dpos = 1, as in JAX.  Points
 outside [0, 1]^3 encode to 0 through ``torch.where``: no boolean indexing,
@@ -41,6 +44,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from envidr_tpu_torch.ops.cp_rows import row_pair
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,8 +122,7 @@ def _axis_feat(table: torch.Tensor, pos: torch.Tensor, R: int, bf16: bool) -> to
         table = table.to(torch.bfloat16).float()
     else:
         w0, w1 = 1.0 - frac, frac
-    v0 = table.index_select(0, i0)
-    v1 = table.index_select(0, i0 + 1)
+    v0, v1 = row_pair(table, i0)
     return w0[:, None] * v0 + w1[:, None] * v1
 
 

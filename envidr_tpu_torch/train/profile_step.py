@@ -11,8 +11,9 @@ profiler off and on, the device busy time per step (the device time of the
 operators' kernels, memsets and copies, as the profiler's own "Self CUDA time
 total" counts it; one stream, so nothing overlaps) and its share of the
 untraced wall time, the peak memory, the operators that take the most device
-time, and ``aten::index_add_`` (the CP encoder's table gradients) by input
-shape.  Then, from the profiled steps' own spans (:func:`span_table`): for
+time, and the CP encoder's row pair (``cp_rows.scatter``, the table
+gradients, and ``cp_rows.gather``) by table size (:func:`cp_rows_table`).
+Then, from the profiled steps' own spans (:func:`span_table`): for
 each span, by its path from ``train_step``, the count, host ms, device ms
 and self device ms a step; the share of ``train_step``'s device time that its
 children cover; the counters a step; and the ten longest device idle gaps,
@@ -80,6 +81,26 @@ def span_table(snap: obs.Snapshot) -> str:
     return "\n".join(out) + "\n"
 
 
+def cp_rows_table(snap: obs.Snapshot) -> str:
+    """The ``cp_rows.scatter`` and ``cp_rows.gather`` spans of the
+    recording's ``train_step`` roots by their tag, the table's rows: calls
+    and device ms a step ("-" without a card)."""
+    n = len(snap.roots("train_step"))
+    rows = {}
+    for s in snap.spans:
+        if (s.name in ("cp_rows.scatter", "cp_rows.gather") and s.t1_ns is not None
+                and snap.spans[s.root].name == "train_step"):
+            r = rows.setdefault((s.name, s.tag), [0, None])
+            r[0] += 1
+            if s.device_ms is not None:
+                r[1] = (r[1] or 0.0) + s.device_ms
+    out = ["CP row pair by table rows (calls a step, device ms a step):"]
+    out += [f"  {name:<16} rows={tag!s:<6} {r[0] / n:6.2f} "
+            f"{'-' if r[1] is None else f'{r[1] / n:.3f}':>9}"
+            for (name, tag), r in sorted(rows.items(), key=lambda kv: (kv[0][0], kv[0][1] or 0))]
+    return "\n".join(out) + "\n" if rows else "CP row pair: none recorded\n"
+
+
 def trace_with_spans(trace: dict, snap: obs.Snapshot) -> dict:
     """The chrome trace with the recording's spans as ``"X"`` events (their
     device ms and step in ``args``) on a track of their own."""
@@ -91,7 +112,8 @@ def trace_with_spans(trace: dict, snap: obs.Snapshot) -> dict:
             events.append({"ph": "X", "cat": "program_span", "name": s.name, "pid": SPAN_PID,
                            "tid": s.thread, "ts": (s.t0_ns - base_ns) / 1e3,
                            "dur": (s.t1_ns - s.t0_ns) / 1e3,
-                           "args": {"step": s.step, "device_ms": s.device_ms}})
+                           "args": {"step": s.step, "device_ms": s.device_ms,
+                                    "tag": s.tag}})
     return {**trace, "traceEvents": trace["traceEvents"] + events}
 
 
@@ -149,7 +171,7 @@ def main():
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t) * 1e3 / args.steps
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         w0 = time.time_ns() / 1e3
         t = time.perf_counter()
         for _ in range(args.steps):
@@ -179,13 +201,7 @@ def main():
     ops = EventList([e for e in events if not e.is_user_annotation and e.key not in names],
                     use_device="cuda")
     table = ops.table(sort_by="self_device_time_total", row_limit=30)
-    by_shape = sorted((e for e in prof.key_averages(group_by_input_shape=True)
-                       if e.key == "aten::index_add_"),
-                      key=lambda e: -e.self_device_time_total)
-    table += "\naten::index_add_ by input shape (device ms per step, calls per step):\n"
-    table += "".join(f"  {e.input_shapes}  {e.self_device_time_total / 1e3 / args.steps:.3f}"
-                     f"  {e.count / args.steps:g}\n" for e in by_shape)
-    table += span_table(snap)
+    table += "\n" + cp_rows_table(snap) + span_table(snap)
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
