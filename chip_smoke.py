@@ -581,7 +581,7 @@ def check_cp_rows():
     from envidr_tpu_torch.tools import cp_rows_cases as cases
 
     src = "envidr_tpu_torch/csrc/cp_rows.cu"
-    replaces = "none (ops/cp.py:_axis_feat's index_select pair and its index_add_s)"
+    replaces = "none (ops/cp.py:cp_encode's index_select pair and its index_add_s)"
     N, rank = cases.N, cases.RANK
     g = torch.Generator(device="cuda").manual_seed(9)
     dv0 = torch.randn(N, rank, device="cuda", generator=g)

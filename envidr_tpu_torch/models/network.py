@@ -53,7 +53,8 @@ from envidr_tpu_torch.models.mlp import (
     apply_mlp, apply_stacked_mlp, feat_act, init_linear, init_mlp, softplus_beta, stack_mlps,
 )
 from envidr_tpu_torch.ops import density as density_ops
-from envidr_tpu_torch.ops.cp import CPSpec, cp_encode_from_world, init_cp_params
+from envidr_tpu_torch.ops.cp import (CPSpec, cp_encode_from_world, init_cp_params,
+                                     rows_read_again)
 from envidr_tpu_torch.ops.freq import freq_encode, freq_output_dim
 from envidr_tpu_torch.ops.hashgrid import (
     EncoderGradGate, HashGridSpec, hash_encode, hash_encode_from_world, init_hash_embeddings,
@@ -542,7 +543,10 @@ class NeRFNetwork(nn.Module):
                 gate.skip_table_grad = True
                 try:
                     field = geo_out["sdf"] if self.cfg.use_sdf else geo_out["sigma"]
-                    (grads,) = torch.autograd.grad(field.sum(), pts, create_graph=create_graph)
+                    # the double backward keeps the CP encoder's rows as it reads them
+                    with rows_read_again():
+                        (grads,) = torch.autograd.grad(field.sum(), pts,
+                                                       create_graph=create_graph)
                 finally:
                     gate.skip_table_grad = False
             if not self.cfg.use_sdf:
@@ -667,25 +671,30 @@ class NeRFNetwork(nn.Module):
         return feat_act(apply_mlp(self.renv_net, x), self.cfg.env_feat_act)
 
     def _blend_renv(self, c_env, head, r_images, roughness, blend_weight, aux):
-        """The renv branch of ``forward_color`` (network.py:604-643)."""
-        cfg = self.cfg
-        renv_mask = roughness[..., 0] < cfg.indir_roughness_thresh
-        if r_images.shape[-1] == 4:
-            r_vis = r_images[..., 3]
-            r_images = r_images[..., :3] * r_vis.detach()[..., None]
-            renv_mask = renv_mask & (r_vis > 0.9)
-        remap = torch.sqrt(torch.clamp(roughness / cfg.roughness_scale / 0.75, min=0.0))
-        if cfg.learn_indir_blend and blend_weight is not None:
-            blend = 0.98 * blend_weight
-        else:     # the reference's roughness sigmoid (network.py:631)
-            blend = 0.95 * torch.sigmoid(80.0 * (remap - 0.18))
-        c_renv = head(self._renv_feat(r_images, remap))
-        if cfg.indir_only:
-            c_env = c_env * 0.0
-        blended = c_env * blend + c_renv * (1.0 - blend)
-        aux["renv_mask"] = renv_mask
-        aux["blend"] = blend
-        return torch.where(renv_mask[..., None], blended, c_env)
+        """The renv branch of ``forward_color`` (network.py:604-643), the span
+        ``renv``.  It runs on every sample slot it is given, counted as
+        ``renv.samples``; ``renv.open`` counts the slots its gate opens."""
+        with obs.span("renv"):
+            cfg = self.cfg
+            renv_mask = roughness[..., 0] < cfg.indir_roughness_thresh
+            if r_images.shape[-1] == 4:
+                r_vis = r_images[..., 3]
+                r_images = r_images[..., :3] * r_vis.detach()[..., None]
+                renv_mask = renv_mask & (r_vis > 0.9)
+            obs.count("renv.samples", renv_mask.numel())
+            obs.count_later("renv.open", renv_mask)
+            remap = torch.sqrt(torch.clamp(roughness / cfg.roughness_scale / 0.75, min=0.0))
+            if cfg.learn_indir_blend and blend_weight is not None:
+                blend = 0.98 * blend_weight
+            else:     # the reference's roughness sigmoid (network.py:631)
+                blend = 0.95 * torch.sigmoid(80.0 * (remap - 0.18))
+            c_renv = head(self._renv_feat(r_images, remap))
+            if cfg.indir_only:
+                c_env = c_env * 0.0
+            blended = c_env * blend + c_renv * (1.0 - blend)
+            aux["renv_mask"] = renv_mask
+            aux["blend"] = blend
+            return torch.where(renv_mask[..., None], blended, c_env)
 
     def get_color_mlp_extra_params(self, normals, dirs, roughness=0.0, env_rot_radian=None):
         """Normal encoding, IDE of the reflected direction, n.w_o and the

@@ -23,8 +23,15 @@ the mode put back when the root ends.  At most :data:`MAX_SPANS` spans are
 kept a recording; the rest are counted as dropped.
 
 Counters.  :func:`count` adds to a host int in :data:`COUNTERS`, always, and
-:func:`count_later` keeps a device tensor (while recording only) that is
-summed when read, so counting launches nothing inside a step.  Each root
+:func:`count_later` keeps a device tensor (while recording only) whose
+elements are summed when read, so counting launches nothing inside a step.
+The port's counters: ``launches.<symbol>`` (``ops/_cuda.py``), ``host_sync``
+and ``host_sync.implicit``, ``march.slots`` and ``march.samples`` (a train
+step's march, the main pass's under the indirect render), ``cp_rows.*``
+(``ops/cp_rows.py``), ``indirect.rays``, ``indirect.ref_rays``,
+``indirect.geometry.samples``, ``indirect.reflect.slots`` and
+``indirect.reflect.samples`` (``render/indirect.py``), and ``renv.samples``
+and ``renv.open`` (the renv branch, ``models/network.py``).  Each root
 span keeps what the counters gained while it was open; :func:`snapshot`
 synchronises once and returns the spans with their device milliseconds and
 the counters summed over the roots.
@@ -249,8 +256,9 @@ def count(name: str, n: int = 1):
 
 
 def count_later(name: str, t: torch.Tensor, scale: float = 1.0):
-    """While recording, count ``scale`` times the device scalar ``t``,
-    summed when :func:`snapshot` reads it, in the open root's counters."""
+    """While recording, count ``scale`` times the sum of the device tensor
+    ``t`` (a scalar, or a per-ray count or mask), summed when :func:`snapshot`
+    reads it, in the open root's counters."""
     rec = _rec
     if _owner is None or rec is None or not (_explicit or _profiler._is_profiler_enabled):
         return
@@ -296,7 +304,7 @@ def snapshot() -> Snapshot:
     for name, t, scale, root in rec.later:
         c = spans[root].counters
         if c is not None:
-            c[name] = c.get(name, 0.0) + float(t) * scale
+            c[name] = c.get(name, 0.0) + float(t.sum()) * scale
     total: Dict[str, float] = {}
     for s in spans:
         if s.parent is None and s.counters:

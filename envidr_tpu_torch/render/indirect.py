@@ -13,6 +13,15 @@ secondary ray whose mask is off carries a zero reflection image with zero
 visibility, which routes it through the plain env branch of the colour head.
 So the shapes do not depend on the data and nothing reads a mask back on the
 host (a boolean index would block the host every step).
+
+Each pass is a span (``obs.py``) holding its ``render``:
+``indirect.geometry``, ``indirect.reflect`` and ``indirect.main``.  The
+counters: ``indirect.rays`` (N), ``indirect.ref_rays`` (the rays whose
+reflection mask is on), ``indirect.geometry.samples`` (pass 1's marched
+samples), ``indirect.reflect.slots`` (N times pass 2's budget) and
+``indirect.reflect.samples`` (its marched samples); the device sums are
+kept as tensors and read at ``obs.snapshot()``.  Pass 3's slots and samples
+are the trainer's ``march.slots`` and ``march.samples``.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from envidr_tpu_torch import obs
 from envidr_tpu_torch.geometry.rays import reflect_dir
 from envidr_tpu_torch.models.network import NeRFNetwork
 from envidr_tpu_torch.ops.density import SQRT3
@@ -60,10 +70,16 @@ def render_scene_indirect(net: NeRFNetwork, opts: SceneRenderOptions, iopts: Ind
     shared = dict(level_mask=level_mask, normal_anneal_ratio=normal_anneal_ratio,
                   cos_anneal_ratio=cos_anneal_ratio, beta_cap=beta_cap, beta_min=beta_min)
 
+    N = rays_o.shape[0]
+    obs.count("indirect.rays", N)
+
     # pass 1: geometry only (renderer.py:442-447)
-    geo = render_scene(net, dataclasses.replace(opts, geometry_only=True, with_loss_aux=False),
-                       bitfield, rays_o, rays_d, bg_color, aabb, noise=noise[0],
-                       strat_noise=strat_noise[0], **shared)
+    with obs.span("indirect.geometry"):
+        geo = render_scene(net, dataclasses.replace(opts, geometry_only=True,
+                                                    with_loss_aux=False),
+                           bitfield, rays_o, rays_d, bg_color, aabb, noise=noise[0],
+                           strat_noise=strat_noise[0], **shared)
+    obs.count_later("indirect.geometry.samples", geo["counts"])
     normals = geo["normal_image"]
     depth = geo["depth"] - dt
     weights_sum = geo["weights_sum"]
@@ -74,6 +90,7 @@ def render_scene_indirect(net: NeRFNetwork, opts: SceneRenderOptions, iopts: Ind
     if obj_aabb is not None:
         inside = (ref_o > obj_aabb[:3]).all(-1) & (ref_o < obj_aabb[3:]).all(-1)
         ref_mask = ref_mask & inside
+    obs.count_later("indirect.ref_rays", ref_mask)
 
     # pass 2: the reflected rays on a black background (renderer.py:462-474)
     sec_opts = dataclasses.replace(
@@ -81,17 +98,21 @@ def render_scene_indirect(net: NeRFNetwork, opts: SceneRenderOptions, iopts: Ind
         num_samples=iopts.indir_num_samples, min_near=dt * 2.0, geometry_only=False,
         with_loss_aux=False, grad_ray=iopts.grad_rays, grad_rays_scale=iopts.grad_rays_scale,
         use_bg_net=False)
-    sec = render_scene(net, sec_opts, bitfield, ref_o, ref_d, 0.0, aabb, noise=noise[1],
-                       strat_noise=strat_noise[1], env_rot_radian=env_rot_radian, **shared)
+    with obs.span("indirect.reflect"):
+        sec = render_scene(net, sec_opts, bitfield, ref_o, ref_d, 0.0, aabb, noise=noise[1],
+                           strat_noise=strat_noise[1], env_rot_radian=env_rot_radian, **shared)
+    obs.count("indirect.reflect.slots", N * iopts.indir_num_samples)
+    obs.count_later("indirect.reflect.samples", sec["counts"])
     r_images = torch.cat([sec["image"], sec["weights_sum"][:, None]], dim=-1)
     r_images = torch.where(ref_mask[:, None], r_images, torch.zeros((), device=r_images.device))
 
     # pass 3: the main render, fed with the reflection image.  Passes 2 and 3
     # composite onto their bg_color, never onto the background net
     main_opts = dataclasses.replace(opts, geometry_only=False, use_bg_net=False)
-    results = render_scene(net, main_opts, bitfield, rays_o, rays_d, bg_color, aabb, noise=noise[2],
-                           strat_noise=strat_noise[2], r_images=r_images,
-                           env_rot_radian=env_rot_radian, **shared)
+    with obs.span("indirect.main"):
+        results = render_scene(net, main_opts, bitfield, rays_o, rays_d, bg_color, aabb,
+                               noise=noise[2], strat_noise=strat_noise[2], r_images=r_images,
+                               env_rot_radian=env_rot_radian, **shared)
     results.update(normal_image=normals, depth=depth, ref_mask=ref_mask, ray_mask=ray_mask,
                    r_images=r_images)
     return results

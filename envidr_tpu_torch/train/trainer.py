@@ -864,7 +864,9 @@ class Trainer:
                                              strat_noise=strat_noise, volsdf_draws=volsdf,
                                              **frame)
         with obs.span("backward"):
-            loss.backward()
+            # into the parameters alone: the normals' sample points are leaves
+            # that require a gradient, and theirs would be computed for nothing
+            loss.backward(inputs=[p for p in self.net.parameters() if p.requires_grad])
         with obs.span("update"):
             self._apply_update()
         if sched.use_error_map:      # the per-ray EMA of the image's error (:547-555)

@@ -4,6 +4,9 @@ first and second order, the CP encoder through the pair against the
 expressions it replaced, the wrappers' checks, and, on a card, the kernels
 against the plain versions at the CP train step's shapes."""
 
+import contextlib
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -90,19 +93,51 @@ VARIANTS = [("float32", "twohot"), ("float32", "take"), ("bfloat16", "twohot"),
             ("bfloat16", "take")]
 
 
-def _index_select_pair(table, i0):
-    return table.index_select(0, i0), table.index_select(0, i0 + 1)
+def _index_select_pair(table, i0, rows):
+    """The stacked tables' rows read table by table with ``index_select``."""
+    starts = np.cumsum((0,) + rows[:-1])
+    return tuple(torch.stack([table[o:o + R].index_select(0, i + k)
+                              for o, R, i in zip(starts, rows, i0)]) for k in (0, 1))
 
 
-def _encoder_readings(spec, params, x, w, cot):
+def _loop_encode(inputs, params, spec):
+    """The encoder as a loop over levels and axes, one table at a time (the
+    form ``cp_encode`` had before it read every table in one call)."""
+    x = inputs.reshape(-1, spec.input_dim)
+    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1, keepdim=True)
+    feats = []
+    for lvl in range(spec.num_levels):
+        R, scale = spec.resolutions[lvl], spec.scales[lvl]
+        prod = None
+        for a in range(spec.input_dim):
+            pos, table = x[:, a] * scale, params["axes"][lvl][a]
+            i0f = torch.clamp(torch.floor(pos.detach()), 0, R - 2)
+            frac = pos - i0f
+            if spec.rounds_bf16:
+                w1 = frac.to(torch.bfloat16)
+                w0 = (1.0 - w1).float()
+                w1 = w1.float()
+                table = table.to(torch.bfloat16).float()
+            else:
+                w0, w1 = 1.0 - frac, frac
+            v0, v1 = cp_rows.row_pair(table, i0f.long())
+            f = w0[:, None] * v0 + w1[:, None] * v1
+            prod = f if prod is None else prod * f
+        feats.append(prod @ params["proj"][lvl])
+    out = torch.where(oob, torch.zeros(()), torch.cat(feats, dim=-1))
+    return out.reshape(*inputs.shape[:-1], spec.output_dim)
+
+
+def _encoder_readings(spec, params, x, w, cot, encode=None):
     """The forward, the first-order gradients of every leaf and x, and the
     eikonal pattern's mixed term: grads of a loss of d(encoding . w)/dx."""
     leaves = [*[a for lvl in params["axes"] for a in lvl], *params["proj"]]
+    encode = encode or tcp.cp_encode
     xx = x.clone().requires_grad_(True)
-    out = tcp.cp_encode(xx, params, spec)
+    out = encode(xx, params, spec)
     first = torch.autograd.grad((out * cot).sum(), [*leaves, xx])
     xx = x.clone().requires_grad_(True)
-    (gx,) = torch.autograd.grad((tcp.cp_encode(xx, params, spec) @ w).sum(), xx,
+    (gx,) = torch.autograd.grad((encode(xx, params, spec) @ w).sum(), xx,
                                 create_graph=True)
     second = torch.autograd.grad((gx ** 2).sum(), [*leaves, xx])
     return [out.detach(), *first, *second]
@@ -126,6 +161,176 @@ def test_cp_encode_through_the_pair_equals_index_select(dtype, form, monkeypatch
     assert len(ours) == len(before)
     for a, b in zip(ours, before):
         assert torch.equal(a, b)
+
+
+def _encoder_case(dtype, form):
+    spec = tcp.CPSpec(**SMALL, compute_dtype=dtype, formulation=form)
+    g = torch.Generator().manual_seed(0)
+    params = tcp.init_cp_params(spec, generator=g)
+    params = {"axes": [[a.requires_grad_(True) for a in lvl] for lvl in params["axes"]],
+              "proj": [p.requires_grad_(True) for p in params["proj"]]}
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-0.05, 1.05, (256, 3)).astype(np.float32))
+    x[:64] = 0.5                                  # empty slots: one point, one row pair
+    w = torch.from_numpy(rng.standard_normal(spec.output_dim).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((256, spec.output_dim)).astype(np.float32))
+    return spec, params, x, w, cot
+
+
+@pytest.mark.parametrize("dtype,form", VARIANTS)
+def test_encode_equals_the_loop_over_tables(dtype, form):
+    """Every table in one call of the pair computes, bit for bit, what the
+    loop over levels and axes computed: the forward, every first-order
+    gradient and the eikonal pattern's mixed term, out-of-bounds points
+    included; the inputs' gradient in the inputs' layout, as the loop gave
+    it (a reduction over it downstream sums in the same order)."""
+    spec, params, x, w, cot = _encoder_case(dtype, form)
+    ours = _encoder_readings(spec, params, x, w, cot)
+    loop = _encoder_readings(spec, params, x, w, cot, encode=_loop_encode)
+    assert len(ours) == len(loop)
+    for a, b in zip(ours, loop):
+        assert torch.equal(a, b) and a.stride() == b.stride()
+
+
+def _eikonal_step(spec, params, x, w, cot, monkeypatch, keep_rows):
+    """The train step's pattern on the encoder, every save seen: the normals'
+    gradient recorded under ``rows_read_again`` (a no-op with
+    ``keep_rows``), then one backward of the colour-like and eikonal-like
+    terms into every leaf and x.  Returns (the storages autograd kept as
+    tensors, the gradients, the rows' gathers)."""
+    kept, gathers = {}, [0]
+
+    def keep(t):
+        st = t.untyped_storage()
+        kept[id(st)] = st
+        return t
+
+    inner, read = tcp._pack, tcp._Rows.read
+
+    def pack(t):
+        out = inner(t)
+        return keep(t) if out is t else out
+
+    def counted(self, tap):
+        gathers[0] += not (self.spare is not None and self.spare[0] == tap)
+        return read(self, tap)
+
+    monkeypatch.setattr(tcp, "_pack", pack)
+    monkeypatch.setattr(tcp._Rows, "read", counted)
+    if keep_rows:
+        monkeypatch.setattr(tcp, "rows_read_again", contextlib.nullcontext)
+    leaves = [*[a for lvl in params["axes"] for a in lvl], *params["proj"]]
+    with torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+        xx = x.clone().requires_grad_(True)
+        out = tcp.cp_encode(xx, params, spec)
+        with tcp.rows_read_again():
+            (gx,) = torch.autograd.grad((out @ w).sum(), xx, create_graph=True)
+        grads = torch.autograd.grad((gx ** 2).sum() + (out * cot).sum(), [*leaves, xx])
+    monkeypatch.undo()
+    return kept, grads, gathers[0]
+
+
+@pytest.mark.parametrize("dtype,form", VARIANTS)
+def test_encode_keeps_no_rows_and_reads_them_again(dtype, form, monkeypatch):
+    """Autograd keeps neither row tensor of the encode, in the forward's
+    graph or in the one the normals' double backward records: the bytes it
+    keeps fall by exactly both rows' bytes against the same step with the
+    rows kept, every gradient of the step stays bit for bit, and the rows
+    are gathered once for the normals and twice for the step's backward."""
+    spec, params, x, w, cot = _encoder_case(dtype, form)
+    kept, grads, gathers = _eikonal_step(spec, params, x, w, cot, monkeypatch, False)
+    kept_rows, grads_rows, none = _eikonal_step(spec, params, x, w, cot, monkeypatch, True)
+    row_bytes = spec.num_levels * spec.input_dim * x.shape[0] * spec.rank * 4
+    assert sum(s.nbytes() for s in kept_rows.values()) - \
+        sum(s.nbytes() for s in kept.values()) == 2 * row_bytes
+    assert (gathers, none) == (3, 0)
+    for a, b in zip(grads, grads_rows):
+        assert torch.equal(a, b)
+
+
+def test_a_freed_row_tensor_is_never_taken_for_another():
+    """A tensor that comes to hold a freed row tensor's address, with its
+    shape, is saved as itself."""
+    rows = tcp._Rows(torch.zeros(3, 2), torch.zeros(1, 4, dtype=torch.long), (3,))
+    v = torch.randn(1, 4, 2)
+    tcp._readable(v, rows, 0)
+    assert isinstance(tcp._pack(v), tcp._Tap)
+    key = v.untyped_storage().data_ptr()
+    ref = tcp._READABLE[key][0]
+    del v
+    assert key not in tcp._READABLE and ref() is None
+    # an entry left behind is not taken for a tensor of another storage
+    other = torch.randn(1, 4, 2)
+    tcp._READABLE[other.untyped_storage().data_ptr()] = (ref, rows, 0, other.shape,
+                                                          other.stride(), 0)
+    try:
+        assert tcp._pack(other) is other
+    finally:
+        tcp._READABLE.pop(other.untyped_storage().data_ptr(), None)
+
+
+def test_no_hooks_while_no_graph_holds_rows():
+    """Without an encode's graph alive (another encoder's step) the hooks
+    are not set, so that step pays nothing for them."""
+    gc.collect()
+    assert isinstance(tcp.rows_read_again(), contextlib.nullcontext)
+    spec, params, x, w, cot = _encoder_case("bfloat16", "twohot")
+    out = tcp.cp_encode(x.clone().requires_grad_(True), params, spec)
+    assert not isinstance(tcp.rows_read_again(), contextlib.nullcontext)
+    del out
+    gc.collect()
+    assert isinstance(tcp.rows_read_again(), contextlib.nullcontext)
+
+
+def _stacked(rows=(5, 9, 6), n=24):
+    table = _randn(sum(rows), RANK, dtype=torch.float64)
+    i0 = torch.stack([_index(n, R, seed=s)[:n] for s, R in enumerate(rows)])
+    return table, i0, rows
+
+
+def test_stacked_pair_equals_the_pair_table_by_table():
+    table, i0, rows = _stacked()
+    dv0 = _randn(len(rows), i0.shape[1], RANK, dtype=torch.float64, seed=2)
+    dv1 = _randn(len(rows), i0.shape[1], RANK, dtype=torch.float64, seed=3)
+    v0, v1 = cp_rows.gather_pairs(table, i0, rows)
+    starts = np.cumsum((0,) + rows[:-1])
+    for s, (o, R) in enumerate(zip(starts, rows)):
+        p0, p1 = cp_rows.gather_pair_plain(table[o:o + R], i0[s])
+        assert torch.equal(v0[s], p0) and torch.equal(v1[s], p1)
+    for taps in ((dv0, dv1), (dv0, None), (None, dv1)):
+        got = cp_rows.scatter_pairs(*taps, i0, rows)
+        want = torch.cat([cp_rows.scatter_pair_plain(*(None if d is None else d[s] for d in taps),
+                                                     i0[s], R) for s, R in enumerate(rows)])
+        assert torch.equal(got, want)
+
+
+def test_stacked_pair_gradcheck_and_gradgradcheck():
+    table, i0, rows = _stacked()
+    table.requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda t: cp_rows.row_pair(t, i0, rows), (table,))
+    assert torch.autograd.gradgradcheck(lambda t: cp_rows.row_pair(t, i0, rows), (table,))
+    dv0 = _randn(len(rows), i0.shape[1], RANK, dtype=torch.float64, seed=2).requires_grad_(True)
+    dv1 = _randn(len(rows), i0.shape[1], RANK, dtype=torch.float64, seed=3).requires_grad_(True)
+
+    def scatter(a, b):
+        return cp_rows.CPRowScatter.apply(a, b, i0, rows)
+
+    assert torch.autograd.gradcheck(scatter, (dv0, dv1))
+    assert torch.autograd.gradgradcheck(scatter, (dv0, dv1))
+
+
+@pytest.mark.parametrize("bad", ["i0_1d", "i0_segments", "rows_total", "no_grads"])
+def test_stacked_wrappers_reject_bad_input(bad):
+    table, i0, rows = _stacked()
+    dv = _randn(len(rows), i0.shape[1], RANK, dtype=torch.float64)
+    call = {
+        "i0_1d": lambda: cp_rows.gather_pairs(table, i0[0], rows),
+        "i0_segments": lambda: cp_rows.gather_pairs(table, i0[:2], rows),
+        "rows_total": lambda: cp_rows.gather_pairs(table[1:], i0, rows),
+        "no_grads": lambda: cp_rows.scatter_pairs(None, None, i0, rows),
+    }[bad]
+    with pytest.raises((TypeError, ValueError)):
+        call()
 
 
 @pytest.mark.parametrize("bad", ["i0_int32", "i0_float", "i0_2d", "table_int", "table_1d",
@@ -215,3 +420,33 @@ def test_kernels_match_plain_on_card(cuda_device, rows):
         plain = cp_rows.scatter_pair_plain(*taps, i0, rows)
         assert bool(((plain.double() - exact).abs() <= tol).all())
         assert bool(((got.double() - exact).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_stacked_kernels_match_plain_on_card(cuda_device):
+    """The CP train step's tables stacked (three axes of the 213-row level
+    and one of the 2048-row level: both scatter paths), one launch a table:
+    the gathers equal the plain version; each table's scatter within
+    ``test_kernels_match_plain_on_card``'s bound of the f64 sum."""
+    g = torch.Generator().manual_seed(5)
+    n, rank = cp_rows_cases.N, cp_rows_cases.RANK
+    rows = (213, 213, 213, 2048)
+    i0 = torch.stack([cp_rows_cases.step_indices(R, generator=g, device=cuda_device)
+                      for R in rows])
+    table = torch.randn(sum(rows), rank, generator=g).to(cuda_device)
+    dv0 = torch.randn(len(rows), n, rank, generator=g).to(cuda_device)
+    dv1 = torch.randn(len(rows), n, rank, generator=g).to(cuda_device)
+    launches = cp_rows.GATHER.launches, cp_rows.SCATTER.launches
+    v0, v1 = cp_rows.gather_pairs(table, i0, rows)
+    out = cp_rows.scatter_pairs(dv0, dv1, i0, rows)
+    torch.cuda.synchronize()
+    assert (cp_rows.GATHER.launches, cp_rows.SCATTER.launches) == \
+        (launches[0] + len(rows), launches[1] + len(rows))
+    start = 0
+    for s, R in enumerate(rows):
+        p0, p1 = cp_rows.gather_pair_plain(table[start:start + R], i0[s])
+        assert torch.equal(v0[s], p0) and torch.equal(v1[s], p1)
+        exact = cp_rows.scatter_pair_plain(dv0[s].double(), dv1[s].double(), i0[s], R)
+        mags = cp_rows.scatter_pair_plain(dv0[s].double().abs(), dv1[s].double().abs(), i0[s], R)
+        assert bool(((out[start:start + R].double() - exact).abs() <= 2.0**-20 * mags).all())
+        start += R

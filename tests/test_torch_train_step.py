@@ -2,6 +2,7 @@
 the same loss terms and gradients from shared parameters and rays, the same
 optimizer update, and the same in-memory scene as tools/gen_synth_scene.py."""
 
+import copy
 import importlib.util
 import os
 from types import SimpleNamespace
@@ -248,3 +249,27 @@ def test_train_step_returns_device_tensors():
             assert isinstance(v, torch.Tensor) and not v.requires_grad, k
             assert v.device.type == "cpu" and v.dim() == 0, k
     assert tr.step_may_sync() is False       # second step: no epoch start, no refresh
+
+
+def test_backward_reaches_the_parameters_alone(monkeypatch):
+    """The step's backward accumulates into the parameters alone (the points
+    the normals differentiate are leaves too, and need no gradient): a step
+    leaves the loss, parameters and both moments bit for bit as a backward
+    into every leaf leaves them."""
+    (_, _, _), (topt, tcfg, net) = shared_model(seed=16)
+    ds = SynthSpheres("train", size=24, n=2, scale=topt.scale)
+    runs, calls = [], []
+    backward = torch.Tensor.backward
+    for every_leaf in (False, True):
+        def spy(self, *a, inputs=None, **k):
+            calls.append(inputs is not None)
+            return backward(self, *a, **k) if every_leaf else backward(self, *a, inputs=inputs, **k)
+        monkeypatch.setattr(torch.Tensor, "backward", spy)
+        tr = Trainer(topt, tcfg, device="cpu", net=copy.deepcopy(net))
+        torch.manual_seed(0)
+        loss = tr.train_step(ds)["loss"]
+        monkeypatch.undo()
+        runs.append([loss, *tr.net.parameters(), *tr.optimizer.m, *tr.optimizer.v])
+    assert calls == [True, True]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
