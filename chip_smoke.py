@@ -2,6 +2,13 @@
 
     python3 chip_smoke.py
 
+A train step checked for host syncs (timed_steps) runs under sync debug
+mode "warn" and may synchronise only in a packing render's counted read of
+its filled count, as many times as Trainer.step_pack_reads says (one a
+render that packs its samples, three a step under the indirect pass): any
+other synchronising call, or another number of those reads, fails the
+phase, which prints a ``<phase>: pack ...`` line when a checked step packed.
+
 Phases, each printing one flushed line with its numbers and the elapsed
 seconds:
 
@@ -26,8 +33,7 @@ seconds:
   train    configs/synth_spheres.ini at full width (rolled_tiled hash grid,
            hash_scatter_impl=mixed, hand-written hash VJP) on the in-memory
            sphere scene: 20 train steps, each step that neither starts an
-           epoch nor refreshes the grid under torch.cuda's sync debug mode
-           "error"; launch counts are zeroed just before
+           epoch nor refreshes the grid checked for host syncs (timed_steps); launch counts are zeroed just before
   render   one 400x400 eval render of a val view, PSNR against the analytic
            ground truth; launch counts are read just after
   cp_parity  a small CP + NeuS + coarse-march model, one train-step loss and
@@ -41,8 +47,8 @@ seconds:
   train_cp configs/synth_spheres_cp.ini, the repo's main path, at full width
            (CP encoder 16 levels x rank 32, NeuS alpha, coarse march, 3x64
            SDF and colour MLPs, env net 64, 4096 rays): 20 train steps, each
-           step that neither starts an epoch nor refreshes the grid under sync
-           debug mode "error"; every march must take the coarse path; launch
+           step that neither starts an epoch nor refreshes the grid checked for
+           host syncs (timed_steps); every march must take the coarse path; launch
            counts are zeroed just before
   render_cp the repo's trained CP checkpoint (assets/neus_cp_long_best.ckpt)
            loaded by the port, val view 0 rendered at 400x400, PSNR against the
@@ -62,7 +68,7 @@ seconds:
            at its published width (CP 16 levels x rank 32, NeuS, dense march,
            3x64 SDF and colour MLPs, env net 160, 4096 rays) with the rendering
            MLPs of assets/env_sphere_pretrain_best.ckpt frozen: 20 train steps,
-           the sync-free ones under sync debug mode "error"; the frozen MLPs
+           the checked ones (timed_steps); the frozen MLPs
            must stay bit-equal to the checkpoint's in the net and the EMA net,
            and every trainable group must move
   relight  val view 0 at 400x400 from that trainer before and after
@@ -74,7 +80,7 @@ seconds:
            x 131,072 points, full width: first and last loss, seconds; then
            10 train steps of that recipe (the beta cap projected at the epoch's
            start and handed to the render and the loss as a device tensor),
-           the sync-free ones under sync debug mode "error"
+           the checked ones (timed_steps)
   train_aux  r4_laplace_ref.ini at epoch 121 (back-face, Cauchy and eikonal
            terms on) with stratified_sampling: 10 steps, every loss term at
            the last one
@@ -97,7 +103,7 @@ seconds:
            3x64 SDF and colour MLPs, env net 160, renv 4 -> 64x3 -> 12, 4096
            rays) resumed from that checkpoint, the grid's unseen cells marked,
            from epoch 76 (indirect pass and grad rays on, error-map sampling):
-           20 steps, the sync-free ones under sync debug mode "error"; the
+           20 steps, the checked ones (timed_steps); the
            frozen colour and diffuse nets bit-equal in the net and the EMA net,
            renv_net moved, the error map changed, the renv gate open on some
            samples; then save_checkpoint and load_checkpoint into a fresh
@@ -127,8 +133,7 @@ seconds:
            checkpoint's val view 0 at 400x400 rendered by 2 ranks against 1
            (max abs difference under PARALLEL_EVAL_ATOL); then a
            world of 1 under nccl (init and an all-reduce on the card).  Gloo
-           copies through the host, so no step here runs under sync debug mode
-           "error"
+           copies through the host, so no step here is checked for host syncs
   bench    the three micro-benchmarks of envidr_tpu_torch.tools at their full
            shapes with few iterations (every table row, hash_encode of both
            indexings included); launch counts are zeroed just before and read
@@ -142,7 +147,7 @@ seconds:
            nets 38 -> 160 x 3 -> 12, 16384 rays x 12 samples) on the env-sphere
            set generated on the card (SPHERE_TRAIN_VIEWS views at 400x400): 2
            steps of the diffuse term alone, then 20 from epoch 5, all after
-           the first under sync debug mode "error"; every env net a step chose
+           the first checked for host syncs (timed_steps); every env net a step chose
            moves; launch counts are zeroed just before and read just after
   train_sphere_hash  neural_renderer_synth.ini as shipped (hashgrid_diff, the
            hash indexing, a 2^19 table) at full width: 5 steps
@@ -197,8 +202,7 @@ seconds:
   train_volsdf  synth_spheres_cp_laplace.ini with error_bound_sample at full
            width (CP 16 x 32, SDF and colour 3x64, env net 64, 4096 rays,
            num_steps 512: 4 rounds to 2560 samples a ray, 50 kept): 10 steps
-           after the grid refresh, the sync-free ones under sync debug mode
-           "error"; ms a step, the sampler's share of it (CUDA events around
+           after the grid refresh, the checked ones (timed_steps); ms a step, the sampler's share of it (CUDA events around
            each call), peak GiB, samples a ray; no march in a step
   train_volsdf_hash  synth_spheres.ini (rolled_tiled hash grid) with
            HASH_KERNEL_PATH and error_bound_sample: 10 steps; counts zeroed
@@ -570,9 +574,10 @@ def check_bench_kernels():
 
 
 def check_cp_rows():
-    """Rows 9-10, the CP row pair at the CP train step's shapes
-    (tools/cp_rows_cases.py): N = 524,288 slots, 87% of them in runs of 28
-    at one row pair, three of the encoder's table sizes.  The scatter sums
+    """Rows 9-10, the CP row pair at the packed CP train step's shapes
+    (tools/cp_rows_cases.py): N = 69,632 points, the samples at uniform rows
+    and 321 padding rows in one run at one row pair, three of the encoder's
+    table sizes.  The scatter sums
     in another f32 order than index_add_: within 2^-20 of the largest row's
     sum of magnitudes (the cuda-marked test holds each element to its own
     row's)."""
@@ -808,33 +813,73 @@ def check_cp_parity(config: str = "synth_spheres_cp.ini", label: str = "cp_parit
     return result
 
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def pack_read(w) -> bool:
+    """Whether a sync debug warning is a packing render's counted read of its
+    filled count (envidr_tpu_torch/ops/marching.py, SlotPacking)."""
+    import linecache
+    return (os.path.relpath(w.filename, ROOT) == os.path.join("envidr_tpu_torch", "ops",
+                                                              "marching.py")
+            and "torch.nonzero" in linecache.getline(w.filename, w.lineno))
+
+
 def timed_steps(trainer, data, steps: int, label: str):
-    """``steps`` train steps, each that neither starts an epoch nor refreshes
-    the grid under sync debug mode "error" (any synchronising call in it
-    raises): (losses, ms of each step, steps checked, each step's metrics)."""
+    """``steps`` train steps.  Each that neither starts an epoch nor refreshes
+    the grid runs under sync debug mode "warn" and may synchronise only in a
+    packing render's counted read of its filled count, exactly as many times
+    as ``Trainer.step_pack_reads`` says (one a render that packs), each also
+    counted as ``host_sync``; any other synchronising call fails the phase.
+    Returns (losses, ms of each step, steps checked, each step's metrics);
+    prints ``<label>: pack checked_steps=... packed_steps=... pack_reads=...``
+    when a checked step packed."""
+    import warnings
     import numpy as np
     import torch
+    from envidr_tpu_torch import obs
 
-    losses, step_ms, sync_free, metrics = [], [], 0, []
+    losses, step_ms, checked, metrics = [], [], 0, []
+    packed = reads = 0
     for i in range(steps):
         guard = not trainer.step_may_sync()
+        want = trainer.step_pack_reads() if guard else 0
+        counted = obs.COUNTERS.get("host_sync", 0)
         t = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error" if guard else "default")
-        try:
-            metrics.append(trainer.train_step(data))
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn" if guard else "default")
+            try:
+                metrics.append(trainer.train_step(data))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
-        sync_free += guard
+        syncs = [w for w in rec if SYNC_WARNING in str(w.message)]
+        for w in rec:                            # the rest are shown as they were
+            if w not in syncs:
+                warnings.showwarning(w.message, w.category, w.filename, w.lineno)
+        if guard:
+            at_pack = sum(map(pack_read, syncs))
+            counted = obs.COUNTERS.get("host_sync", 0) - counted
+            if len(syncs) != at_pack or at_pack != want or counted != want:
+                where = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in syncs]
+                raise AssertionError(f"{label} step {i + 1}: {len(syncs)} host syncs at "
+                                     f"{where}, {at_pack} of them the pack's read, "
+                                     f"{counted} counted; step_pack_reads says {want}")
+            checked += 1
+            packed += bool(want)
+            reads += at_pack
         losses.append(float(metrics[-1]["loss"]))
         if not np.isfinite(losses[-1]):
             raise AssertionError(f"{label} step {i + 1}: loss {losses[-1]}")
     notfinite = int(trainer.notfinite)
-    if notfinite or sync_free < steps - 3:
-        raise AssertionError(f"{label}: notfinite {notfinite}, {sync_free} of {steps} steps "
+    if notfinite or checked < steps - 3:
+        raise AssertionError(f"{label}: notfinite {notfinite}, {checked} of {steps} steps "
                              "checked for host syncs")
-    return losses, step_ms, sync_free, metrics
+    if packed:
+        phase(label, "pack", checked_steps=checked, packed_steps=packed, pack_reads=reads)
+    return losses, step_ms, checked, metrics
 
 
 def assert_widths(config: str, widths: dict, want: dict):
@@ -844,7 +889,7 @@ def assert_widths(config: str, widths: dict, want: dict):
 
 def train_cp(libs):
     """synth_spheres_cp.ini at full width on the in-memory scene: 20 steps,
-    the sync-free ones under sync debug mode "error".  Zeroes the launch
+    the checked ones (timed_steps).  Zeroes the launch
     counts first; every step must run the CP row pair, one scatter a table
     (levels x 3) and at least as many gathers.  Returns the pair's launches
     by name."""
@@ -896,7 +941,7 @@ def train_cp(libs):
                              "take the coarse path")
     phase("train_cp", config="synth_spheres_cp.ini", widths=repr(widths), steps=TRAIN_STEPS,
           loss_1=losses[0], loss_20=losses[-1], notfinite=notfinite,
-          mean_samples_per_ray=float(m["mean_count"]), K=m["K"], sync_free_steps=sync_free,
+          mean_samples_per_ray=float(m["mean_count"]), K=m["K"], checked_steps=sync_free,
           ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
           first_step_ms=step_ms[0], coarse_marches=MARCH_PATHS["coarse"],
           dense_marches=MARCH_PATHS["dense"],
@@ -1182,7 +1227,7 @@ def train_ours(libs):
     phase("train_ours", config="scenes/synth_spheres_ours.ini",
           color_mlp_path=os.path.relpath(PRETRAIN_CKPT, ROOT), frozen=repr(sorted(frozen)),
           steps=TRAIN_STEPS, loss_1=losses[0], loss_20=losses[-1],
-          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          notfinite=int(trainer.notfinite), checked_steps=sync_free,
           ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
           first_step_ms=step_ms[0], mean_samples_per_ray=float(m["mean_count"]), K=m["K"],
           coarse_marches=MARCH_PATHS["coarse"], dense_marches=MARCH_PATHS["dense"],
@@ -1274,7 +1319,7 @@ def cue():
           loss_first=losses[0], loss_last=losses[-1], seconds=secs,
           ms_per_step=secs / CUE_STEPS * 1e3, train_steps=SHORT_STEPS,
           train_loss_1=steps[0], train_loss_last=steps[-1], beta=beta, beta_cap=cap,
-          train_ms_per_step_after_3=float(np.mean(step_ms[3:])), sync_free_steps=sync_free,
+          train_ms_per_step_after_3=float(np.mean(step_ms[3:])), checked_steps=sync_free,
           notfinite=int(trainer.notfinite))
 
 
@@ -1304,7 +1349,7 @@ def train_aux():
           stratified_sampling=True, steps=SHORT_STEPS, loss_1=losses[0], loss_last=losses[-1],
           **{f"last_{k}": v for k, v in last.items()},
           **{f"first_{k}": v for k, v in first.items()}, K=ms[-1]["K"],
-          ms_per_step_after_3=float(np.mean(step_ms[3:])), sync_free_steps=sync_free,
+          ms_per_step_after_3=float(np.mean(step_ms[3:])), checked_steps=sync_free,
           notfinite=int(trainer.notfinite))
 
 
@@ -1336,7 +1381,7 @@ def train_density(libs):
     phase("train_density", config="synth_spheres_density.ini", steps=SHORT_STEPS,
           loss_1=losses[0], loss_last=losses[-1], ms_per_step_after_3=float(np.mean(step_ms[3:])),
           rays_per_s=opt.num_rays / float(np.mean(step_ms[3:])) * 1e3,
-          mean_samples_per_ray=float(m["mean_count"]), sync_free_steps=sync_free,
+          mean_samples_per_ray=float(m["mean_count"]), checked_steps=sync_free,
           notfinite=int(trainer.notfinite), scatter_launches=launches,
           grid_occupied=float(trainer.grid.bitfield.float().mean()))
     return launches
@@ -1559,7 +1604,7 @@ def train_shiny3(train, libs):
     phase("train_shiny3", config="scenes/shiny3_indir.ini",
           checkpoint=os.path.relpath(SHINY3_CKPT, ROOT), epoch=trainer.epoch, steps=TRAIN_STEPS,
           loss_1=losses[0], loss_20=losses[-1], notfinite=int(trainer.notfinite),
-          sync_free_steps=sync_free, ms_per_step_after_3=ms_per_step,
+          checked_steps=sync_free, ms_per_step_after_3=ms_per_step,
           rays_per_s=opt.num_rays / ms_per_step * 1e3, first_step_ms=step_ms[0],
           mean_samples_per_ray=float(ms[-1]["mean_count"]), K=ms[-1]["K"],
           renv_open_max=max(renv_open), renv_open_mean=float(np.mean(renv_open)),
@@ -1598,7 +1643,7 @@ def train_stack(libs):
     phase("train_stack", config="scenes/shiny2_stack.ini", epoch=trainer.epoch,
           steps=SHORT_STEPS, loss_1=losses[0], loss_last=losses[-1], rays=sched.num_rays,
           K=ms[-1]["K"], ms_per_step_after_3=float(np.mean(step_ms[3:])),
-          sync_free_steps=sync_free, notfinite=int(trainer.notfinite),
+          checked_steps=sync_free, notfinite=int(trainer.notfinite),
           scatter_launches=launches, terms=repr(sorted(k for k in ms[-1] if k not in (
               "loss", "mean_count", "notfinite", "K", "index", "renv_open"))), decode_s=decode_s)
     return launches
@@ -1700,8 +1745,8 @@ def generate_sphere_sets():
 
 def train_sphere(train, gen_s, libs):
     """neural_renderer_cp.ini at its published width on the generated set: 2
-    steps of the diffuse term alone (epoch 1), then 20 from epoch 5, all under
-    sync debug mode "error"; every env net a step chose must move."""
+    steps of the diffuse term alone (epoch 1), then 20 from epoch 5, all after the
+    first checked for host syncs (timed_steps); every env net a step chose must move."""
     import numpy as np
     import torch
     from envidr_tpu_torch.config import card_options, network_config
@@ -1729,14 +1774,14 @@ def train_sphere(train, gen_s, libs):
              if any(not torch.equal(a[e], b.weight[e]) for a, b in zip(env, trainer.net.env_nets))]
     if trainer._sched.diffuse_only or not set(chosen) <= set(moved) or sync_free != TRAIN_STEPS:
         raise AssertionError(f"train_sphere: env nets chosen {chosen}, moved {moved}, "
-                             f"sync-free steps {sync_free}")
+                             f"checked steps {sync_free}")
     ms_per_step = float(np.mean(step_ms[3:]))
     phase("train_sphere", config="neural_renderer_cp.ini", widths=repr(_sphere_widths(opt, cfg)),
           train_views=len(train), size=f"{train.H}x{train.W}", generate_s=gen_s,
           diffuse_only_steps=2, diffuse_only_ms=repr([round(v, 1) for v in diffuse_ms]),
           steps=TRAIN_STEPS, epoch=trainer.epoch, loss_1=losses[0], loss_20=losses[-1],
           terms=repr(sorted(k for k in ms[-1] if k not in ("loss", "notfinite", "K", "index"))),
-          notfinite=int(trainer.notfinite), sync_free_steps=sync_free + diffuse_free,
+          notfinite=int(trainer.notfinite), checked_steps=sync_free + diffuse_free,
           ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
           samples_per_step=opt.num_rays * 12, first_step_ms=step_ms[0],
           env_nets_chosen=repr(chosen), env_nets_moved=repr(moved),
@@ -1767,7 +1812,7 @@ def train_sphere_hash(train, libs):
     phase("train_sphere_hash", config="neural_renderer_synth.ini",
           widths=repr(_sphere_widths(opt, cfg)), indexing=cfg.hash_spec.indexing,
           steps=SPHERE_HASH_STEPS, loss_1=losses[0], loss_last=losses[-1],
-          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          notfinite=int(trainer.notfinite), checked_steps=sync_free,
           ms_per_step_after_1=float(np.mean(step_ms[1:])), first_step_ms=step_ms[0],
           peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
 
@@ -1856,7 +1901,7 @@ def train_renv(libs):
     phase("train_renv", config="neural_renderer_renv.ini", overrides=repr(RENV_OVERRIDES),
           train_views=len(data), size=f"{data.H}x{data.W}", decode_s=decode_s,
           steps=SHORT_STEPS, loss_1=losses[0], loss_last=losses[-1],
-          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          notfinite=int(trainer.notfinite), checked_steps=sync_free,
           ms_per_step_after_3=float(np.mean(step_ms[3:])), first_step_ms=step_ms[0],
           frozen=repr(frozen), frozen_bit_equal=True, renv_moved=True,
           peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
@@ -1894,13 +1939,17 @@ def render_renv(libs):
 
 class SyncWatch:
     """Counts the host syncs of one CLI epoch (the second) under sync debug
-    mode "warn": those of the steps :meth:`Trainer.step_may_sync` names, and
-    the rest (the epoch's one read of its averaged metrics)."""
+    mode "warn": those of the steps :meth:`Trainer.step_may_sync` names, the
+    packing renders' counted reads of their filled counts in the other
+    steps (each step's must number what :meth:`Trainer.step_pack_reads`
+    says; a step that differs is kept in ``pack_faults``), and the rest (the
+    epoch's one read of its averaged metrics)."""
 
     def __init__(self, trainer_cls, at_epoch: int = 1):
         self.cls, self.at_epoch = trainer_cls, at_epoch
         self.total = self.in_may_sync = self.may_sync_steps = self.steps = 0
-        self.record, self.entries, self.beyond_at = None, [], []
+        self.pack_reads = self.packed_steps = 0
+        self.record, self.entries, self.beyond_at, self.pack_faults = None, [], [], []
 
     def __enter__(self):
         import warnings
@@ -1927,6 +1976,7 @@ class SyncWatch:
             if watch.record is None:
                 return step(tr, dataset, **kw)
             may, n0 = tr.step_may_sync(), len(watch.record)
+            want = 0 if may else tr.step_pack_reads()
             watch.beyond_at += watch._where(watch._tail, n0)
             out = step(tr, dataset, **kw)
             watch.steps += 1
@@ -1934,7 +1984,14 @@ class SyncWatch:
                 watch.may_sync_steps += 1
                 watch.in_may_sync += watch._syncs(n0)
             else:
-                watch.beyond_at += watch._where(n0, len(watch.record))
+                syncs = [w for w in watch.record[n0:] if SYNC_WARNING in str(w.message)]
+                at_pack = sum(map(pack_read, syncs))
+                if at_pack != want:
+                    watch.pack_faults.append((watch.steps, at_pack, want))
+                watch.pack_reads += at_pack
+                watch.packed_steps += bool(want)
+                watch.beyond_at += [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                                    for w in syncs if not pack_read(w)]
             watch._tail = len(watch.record)
             return out
 
@@ -1942,14 +1999,12 @@ class SyncWatch:
         self.cls.train_one_epoch, self.cls.train_step = train_one_epoch, train_step
         return self
 
-    SYNC_WARNING = "called a synchronizing CUDA operation"
-
     def _syncs(self, start: int) -> int:
-        return sum(self.SYNC_WARNING in str(w.message) for w in self.record[start:])
+        return sum(SYNC_WARNING in str(w.message) for w in self.record[start:])
 
     def _where(self, start: int, stop: int):
         return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
-                for w in self.record[start:stop] if self.SYNC_WARNING in str(w.message)]
+                for w in self.record[start:stop] if SYNC_WARNING in str(w.message)]
 
     def __exit__(self, *exc):
         self.cls.train_one_epoch, self.cls.train_step = self._saved
@@ -1999,12 +2054,15 @@ def cli_phase():
     if starts != [(0, 0), (2, 2 * CLI_TRAIN_VIEWS)] or [e[0] for e in epochs] != [1, 2, 3]:
         raise AssertionError(f"cli: epoch entries {watch.entries}, log epochs {epochs}; "
                              "the resumed run must start at epoch 3 from global step 100")
-    beyond = watch.total - watch.in_may_sync
-    if watch.steps != CLI_TRAIN_VIEWS or beyond > 1:
+    beyond = watch.total - watch.in_may_sync - watch.pack_reads
+    if watch.steps != CLI_TRAIN_VIEWS or beyond > 1 or watch.pack_faults:
         raise AssertionError(f"cli: the second epoch ({watch.steps} steps) synchronised "
                              f"{watch.total} times, {watch.in_may_sync} in the "
-                             f"{watch.may_sync_steps} steps step_may_sync names: "
-                             f"{beyond} beyond them (at most 1), at {watch.beyond_at}")
+                             f"{watch.may_sync_steps} steps step_may_sync names, "
+                             f"{watch.pack_reads} the packs' reads in {watch.packed_steps} "
+                             f"steps (step, reads, step_pack_reads) that differ: "
+                             f"{watch.pack_faults}; {beyond} beyond them (at most 1), "
+                             f"at {watch.beyond_at}")
     # the epochs move the model: each epoch's mean loss (the log's) at most
     # CLI_LOSS_FALL of the one before, the resumed third's too; an optimizer
     # that never steps, an epoch without its steps or a resume from fresh
@@ -2021,7 +2079,8 @@ def cli_phase():
           eval_psnr_db_ep2=eval_psnr, eval_psnr_db_ep3=resume_psnr, test_psnr_db=test_psnr,
           resumed_from=repr(starts[1]), checkpoints=repr(files), args_json_keys=n_args,
           syncs_epoch2=watch.total, syncs_in_may_sync_steps=watch.in_may_sync,
-          may_sync_steps=watch.may_sync_steps, syncs_beyond=beyond,
+          may_sync_steps=watch.may_sync_steps, pack_reads=watch.pack_reads,
+          packed_steps=watch.packed_steps, syncs_beyond=beyond,
           syncs_beyond_at=repr(watch.beyond_at), train_runs_s=train_s)
 
 
@@ -2348,8 +2407,7 @@ def _timed_sampler():
 
 def train_volsdf(libs, config: str = VOLSDF_INI, label: str = "train_volsdf", **overrides):
     """``config`` with error_bound_sample at full width: VOLSDF_STEPS steps
-    after the grid refresh, the sync-free ones under sync debug mode
-    "error".  Counts are zeroed just before and read just after; returns the
+    after the grid refresh, the checked ones (timed_steps).  Counts are zeroed just before and read just after; returns the
     launches of scatter_add_rows."""
     import numpy as np
     import torch
@@ -2390,7 +2448,7 @@ def train_volsdf(libs, config: str = VOLSDF_INI, label: str = "train_volsdf", **
     ms_per_step = float(np.mean(step_ms[3:]))
     phase(label, config=os.path.basename(config), overrides=repr(overrides),
           widths=repr(widths), steps=VOLSDF_STEPS, loss_1=losses[0], loss_last=losses[-1],
-          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          notfinite=int(trainer.notfinite), checked_steps=sync_free,
           ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
           first_step_ms=step_ms[0], sampler_ms_after_3=float(np.mean(sampler_ms[3:])),
           sampler_share=float(np.mean(sampler_ms[3:])) / ms_per_step,
@@ -2455,7 +2513,7 @@ def split_env(libs):
         raise AssertionError("split_env: the split relight changed no pixel")
     phase("split_env", config="scenes/synth_spheres_ours.ini", split_diffuse_env=True,
           steps=SPLIT_STEPS, loss_1=losses[0], loss_last=losses[-1],
-          notfinite=int(trainer.notfinite), sync_free_steps=sync_free,
+          notfinite=int(trainer.notfinite), checked_steps=sync_free,
           ms_per_step_after_1=float(np.mean(step_ms[1:])), diffuse_env_is_old_env=True,
           env_is_file=True, size=f"{val.H}x{val.W}", seconds_before=secs[0],
           seconds_after=secs[1], mean_abs_diff=diff, launches=_launches(libs))
@@ -2483,7 +2541,7 @@ def options_phase(libs):
         if name == "dt_gamma" and (MARCH_PATHS["coarse"] or MARCH_PATHS["dense"] != OPTION_STEPS):
             raise AssertionError(f"options dt_gamma marches: {dict(MARCH_PATHS)}; all dense")
         readings[name] = dict(ms_per_step_after_1=float(np.mean(step_ms[1:])),
-                              loss_last=losses[-1], sync_free=sync_free,
+                              loss_last=losses[-1], checked=sync_free,
                               mean_count=float(ms[-1]["mean_count"]))
         phase("options", name, overrides=repr(kw), **readings[name])
     # the background net's 2-D table takes autograd's gradient, as in JAX
@@ -2590,7 +2648,7 @@ def main() -> int:
                              f"{TRAIN_STEPS} steps; expected at least one per step")
     phase("train", steps=TRAIN_STEPS, loss_1=losses[0], loss_20=losses[-1],
           notfinite=int(trainer.notfinite), mean_samples_per_ray=float(m["mean_count"]),
-          K=m["K"], sync_free_steps=sync_free,
+          K=m["K"], checked_steps=sync_free,
           ms_per_step_after_3=ms_per_step, rays_per_s=opt.num_rays / ms_per_step * 1e3,
           first_step_ms=step_ms[0], grid_occupied=occupied,
           scatter_launches=launches_train,

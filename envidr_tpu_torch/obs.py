@@ -27,7 +27,9 @@ Counters.  :func:`count` adds to a host int in :data:`COUNTERS`, always, and
 elements are summed when read, so counting launches nothing inside a step.
 The port's counters: ``launches.<symbol>`` (``ops/_cuda.py``), ``host_sync``
 and ``host_sync.implicit``, ``march.slots`` and ``march.samples`` (a train
-step's march, the main pass's under the indirect render), ``cp_rows.*``
+step's march, the main pass's under the indirect render),
+``march.pack.rows``, ``march.pack.slots`` and ``march.pack.dense`` (a
+training render's packing, ``render/scene.py``), ``cp_rows.*``
 (``ops/cp_rows.py``), ``indirect.rays``, ``indirect.ref_rays``,
 ``indirect.geometry.samples``, ``indirect.reflect.slots`` and
 ``indirect.reflect.samples`` (``render/indirect.py``), and ``renv.samples``

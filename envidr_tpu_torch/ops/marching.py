@@ -10,6 +10,10 @@ the first M positive segments (:func:`_march_rays_coarse`); where its
 conditions do not hold (among them ``dt_gamma > 0``, whose growing steps
 only the dense march takes) it falls back to the dense march with a
 one-time warning, as the JAX package does.
+
+The march fills each ray's first ``counts`` slots of its K.  A render hands
+the per-sample work either every slot (:class:`DenseSlots`) or the filled
+slots alone, packed into one flat batch (:class:`SlotPacking`).
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from envidr_tpu_torch import obs
 from envidr_tpu_torch.ops.grid import cell_index
 
 SQRT3 = 3.0**0.5
+PACK_ROWS = 4096        # a packed batch's rows are a multiple of this
 # marches taken by each path since the last reset, {"coarse": n, "dense": n}:
 # shows that a run with coarse_march really marched the coarse grid
 MARCH_PATHS: collections.Counter = collections.Counter()
@@ -148,6 +154,70 @@ def _compact(sel, counts, ts, dts, xyz, d, nears, K: int) -> MarchResult:
     z_vals = torch.where(mask_c, ts_c + dts_c - nears[:, None], zero)
     return MarchResult(xyzs=xyz_c, dirs=d, dts=dts_c, z_vals=z_vals, ts=ts_c,
                        mask=mask_c, counts=counts)
+
+
+class DenseSlots:
+    """Every one of the N x K slots is a row of the per-sample work: the
+    identity of :class:`SlotPacking`."""
+
+    def __init__(self, N: int, K: int):
+        self.N, self.K = N, K
+
+    def gather(self, t):
+        return t
+
+    def per_ray(self, t, pad_zero: bool = False):
+        return t[:, None].expand((self.N, self.K) + t.shape[1:])
+
+    def slots(self, *vs):
+        return vs
+
+
+class SlotPacking:
+    """The filled slots of a march's ``mask`` [N, K] as one flat batch of
+    ``rows``, ray-major: row r < ``n`` is the r-th filled slot, and the rest,
+    up to a multiple of :data:`PACK_ROWS`, pad the batch as empty slots do
+    (position 0, ray 0's direction; their outputs are dropped).  ``n`` is
+    read once on the host (``obs.host_sync``), so no filled slot is ever
+    left out.  It counts ``march.pack.rows`` and ``march.pack.slots``
+    (N x K); its read, gathers and scatters are the span ``march.pack``."""
+
+    def __init__(self, mask: torch.Tensor):
+        self.N, self.K = mask.shape
+        with obs.span("march.pack"), obs.host_sync():       # the one read: the filled count
+            self.filled = torch.nonzero(mask.reshape(-1)).squeeze(1)
+            self.n = self.filled.shape[0]
+            self.rows = max(1, -(-self.n // PACK_ROWS)) * PACK_ROWS
+            # each row's slot and ray; a padding row reads slot 0 of ray 0
+            self.slot = F.pad(self.filled, (0, self.rows - self.n))
+            self.ray = self.slot // self.K
+        obs.count("march.pack.rows", self.rows)
+        obs.count("march.pack.slots", self.N * self.K)
+
+    def _padded(self, t, index):
+        g = t.index_select(0, index)
+        if self.n < self.rows:
+            g[self.n:] = 0
+        return g
+
+    def gather(self, t):
+        """[N, K, ...] -> [rows, ...]: the filled slots, then zeros."""
+        with obs.span("march.pack"):
+            return self._padded(t.reshape((-1,) + t.shape[2:]), self.slot)
+
+    def per_ray(self, t, pad_zero: bool = False):
+        """[N, ...] -> [rows, ...]: each row's ray's; with ``pad_zero`` the
+        padding rows read zeros instead of ray 0's."""
+        with obs.span("march.pack"):
+            return self._padded(t, self.ray) if pad_zero else t.index_select(0, self.ray)
+
+    def slots(self, *vs):
+        """Each of ``vs`` [rows, ...] back to [N, K, ...]: a filled slot takes
+        its row, an empty one 0 (False); None and numbers pass as they are."""
+        with obs.span("march.pack"):
+            return tuple(v if not torch.is_tensor(v) else torch.index_put(
+                v.new_zeros((self.N * self.K,) + v.shape[1:]), (self.filled,), v[:self.n]
+            ).reshape((self.N, self.K) + v.shape[1:]) for v in vs)
 
 
 _COARSE_FALLBACK_WARNED = set()

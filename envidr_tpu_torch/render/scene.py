@@ -13,10 +13,24 @@ alphas, composited as they are, and the normals are always computed: the
 alpha reads them.  A density field (``use_sdf=False``) gives sigmas directly
 and ``sdfs = -sigma``.  ``with_loss_aux`` adds the consecutive-sample SDF
 relations the auxiliary losses read; ``stratified_sampling`` jitters the
-marched samples instead of the march.  A call is the span ``render``
-(``obs.py``), with the children ``march``, ``geometry`` (the position
-encode and the normals), ``composite`` (alphas and weights), ``color`` and
-``composite`` (the images).
+marched samples instead of the march.
+
+A training render with ``pack`` runs the per-sample work (the encode, the
+SDF net and its normals, the density, IDE and the colour MLPs, and their
+backward) on the march's filled slots alone, packed into one flat batch
+(``ops/marching.py:SlotPacking``, one host read of the filled count), and
+scatters its outputs back to the [N, K] slots, zero at the empty ones.  The
+composite and every consumer that reads no empty slot then see what the
+dense render gives them.  The counters ``march.pack.rows`` and
+``march.pack.slots`` (the packed rows, padding included, and N x K of the
+calls that packed) and ``march.pack.dense`` (training renders that did not)
+count it.
+
+A call is the span ``render`` (``obs.py``), with the children ``march``,
+``march.pack`` (packing only: the read, the gathers and the scatters; the
+scatters under ``composite``), ``geometry`` (the position encode and the
+normals), ``composite`` (alphas and weights), ``color`` and ``composite``
+(the images).
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ from envidr_tpu_torch import obs
 from envidr_tpu_torch.geometry.rays import near_far_from_aabb, sph_from_ray
 from envidr_tpu_torch.models.network import NeRFNetwork, _safe_normalize
 from envidr_tpu_torch.ops.compositing import alphas_from_sigmas, weights_from_alphas
-from envidr_tpu_torch.ops.marching import march_rays
+from envidr_tpu_torch.ops.marching import DenseSlots, SlotPacking, march_rays
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +69,9 @@ class SceneRenderOptions:
     grad_ray: bool = False          # secondary-ray gradient re-attachment
     grad_rays_scale: float = 0.01
     use_bg_net: bool = False        # the background net behind the rays
+    # a training render runs the per-sample work on the march's filled slots
+    # alone, packed (ops/marching.py:SlotPacking); the trainer decides
+    pack: bool = False
 
 
 def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Tensor,
@@ -101,33 +118,44 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
             strat = torch.roll(jitter, 1, dims=1) - jitter
             dts = dts + strat
             xyzs = xyzs + strat[..., None] * rays_d[:, None, :]
+        # the rows of the per-sample work: every slot, or the filled ones packed
+        if opts.training and opts.pack:
+            rows = SlotPacking(m.mask)
+        else:
+            rows = DenseSlots(N, K)
+            if opts.training:
+                obs.count("march.pack.dense")
+        p_xyzs, p_dts = rows.gather(xyzs), rows.gather(dts)
         if opts.grad_ray:
             # re-attach the samples to the ray origins so that image gradients
             # reach the secondary rays' origins (cuda_ray.py:100-105)
             s = opts.grad_rays_scale
-            xyzs = xyzs - s * rays_o.detach()[:, None, :] + s * rays_o[:, None, :]
-        dirs = rays_d[:, None, :].expand_as(xyzs)
+            p_o = rows.per_ray(rays_o)
+            p_xyzs = p_xyzs - s * p_o.detach() + s * p_o
+        p_dirs = rows.per_ray(rays_d)
 
         # the color MLPs need normals whenever a normal-derived feature is on
         need_normals = opts.need_normals or (not opts.geometry_only and (
             cfg.normal_with_mlp or cfg.use_reflected_dir or cfg.use_n_dot_viewdir
             or cfg.diffuse_with_env)) or cfg.use_neus_sdf
         with obs.span("geometry"):
-            geo, normals, sdf_gradients = net.geometry_with_normals(
-                xyzs, level_mask, need_normals=need_normals,
+            geo, p_normals, p_grads = net.geometry_with_normals(
+                p_xyzs, level_mask, need_normals=need_normals,
                 normal_anneal_ratio=normal_anneal_ratio, create_graph=opts.training)
-        sdfs = geo["sdf"] if cfg.use_sdf else -geo["sigma"]
-        roughness = geo["roughness"]
-        if roughness is None:
-            roughness = torch.full_like(sdfs[..., None], cfg.default_roughness)
+        p_sdfs = geo["sdf"] if cfg.use_sdf else -geo["sigma"]
+        p_rough = geo["roughness"]
+        if p_rough is None:
+            p_rough = torch.full_like(p_sdfs[..., None], cfg.default_roughness)
 
         with obs.span("composite"):       # alphas and weights
             if cfg.use_sdf:
-                sigmas = net.sdf_to_sigma(
-                    sdfs, dirs=dirs, dists=dts, normals=normals,
+                p_sigmas = net.sdf_to_sigma(
+                    p_sdfs, dirs=p_dirs, dists=p_dts, normals=p_normals,
                     cos_anneal_ratio=cos_anneal_ratio, beta_cap=beta_cap, beta_min=beta_min)
             else:
-                sigmas = geo["sigma"]
+                p_sigmas = geo["sigma"]
+            sigmas, sdfs, normals, sdf_gradients, roughness = rows.slots(
+                p_sigmas, p_sdfs, p_normals, p_grads, p_rough)
             zero = torch.zeros((), device=sigmas.device)
             sigmas = torch.where(m.mask, opts.density_scale * sigmas, zero)
             alphas = sigmas if cfg.use_neus_sdf else alphas_from_sigmas(sigmas, dts)
@@ -157,29 +185,31 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
 
         with obs.span("color"):
             normals_enc, w_r_enc, n_dot_w_o, n_env_enc = net.get_color_mlp_extra_params(
-                normals, dirs, roughness, env_rot_radian)
-            r_in = (None if r_images is None
-                    else r_images[:, None, :].expand(N, K, r_images.shape[-1]))
-            rgbs, aux = net.forward_color(geo["geo_feat"], dirs, normals_enc, w_r_enc,
-                                          n_dot_w_o, n_env_enc=n_env_enc, r_images=r_in,
-                                          roughness=roughness, blend_weight=geo["blend_weight"])
+                p_normals, p_dirs, p_rough, env_rot_radian)
+            p_rgbs, aux = net.forward_color(
+                geo["geo_feat"], p_dirs, normals_enc, w_r_enc, n_dot_w_o, n_env_enc=n_env_enc,
+                # a padding row reflects nothing, so the renv gate stays shut there
+                r_images=None if r_images is None else rows.per_ray(r_images, pad_zero=True),
+                roughness=p_rough, blend_weight=geo["blend_weight"])
 
         with obs.span("composite"):       # the images
+            rgbs, c_diffuse, c_specular, renv_mask = rows.slots(
+                p_rgbs, aux["c_diffuse"], aux["c_specular"], aux.get("renv_mask"))
             results["image"] = (w3 * rgbs).sum(dim=-2) + (1.0 - weights_sum[..., None]) * bg
             if normals is not None:
                 # smooth normalisation: background rays composite to an exactly-zero
                 # normal, where the hard max-guard's backward is 0/0
                 results["normal_image"] = _safe_normalize((w3 * normals.detach()).sum(dim=-2))
             if cfg.use_diffuse and not cfg.diffuse_only:
-                results["diffuse_image"] = ((w3 * aux["c_diffuse"]).sum(dim=-2)
+                results["diffuse_image"] = ((w3 * c_diffuse).sum(dim=-2)
                                             + (1.0 - weights_sum[..., None]) * bg)
-                results["specular_image"] = ((w3 * aux["c_specular"]).sum(dim=-2)
+                results["specular_image"] = ((w3 * c_specular).sum(dim=-2)
                                              + (1.0 - weights_sum[..., None]) * bg)
             results["roughness_image"] = (w3 * roughness).sum(dim=-2)
             results["roughness"] = roughness
-            if "renv_mask" in aux:       # where the indirect branch is live
-                results["renv_mask"] = aux["renv_mask"] & m.mask
-                results["renv_mask_image"] = (weights * aux["renv_mask"].float()).sum(dim=-1)
+            if renv_mask is not None:       # where the indirect branch is live
+                results["renv_mask"] = renv_mask & m.mask
+                results["renv_mask_image"] = (weights * renv_mask.float()).sum(dim=-1)
 
             if opts.with_loss_aux:
                 # consecutive-sample SDF relations (cuda_ray.py:173-211), compacted:
@@ -187,8 +217,8 @@ def render_scene(net: NeRFNetwork, opts: SceneRenderOptions, bitfield: torch.Ten
                 gap = m.ts[..., 1:] - m.ts[..., :-1]
                 # continuity: the gap is under 1.2 dt of the next sample (no voxel skipped)
                 point_mask = m.mask[..., :-1] & m.mask[..., 1:] & (gap < 1.2 * dts[..., 1:])
-                cos = ((dirs * normals.detach()).sum(dim=-1) if normals is not None
-                       else torch.zeros_like(sdfs))
+                cos = ((rays_d[:, None, :] * normals.detach()).sum(dim=-1)
+                       if normals is not None else torch.zeros_like(sdfs))
                 results.update(relsdf=sdfs[..., 1:] - sdfs[..., :-1],
                                est_relsdf=gap * cos[..., :-1], cos=cos[..., :-1],
                                point_mask=point_mask, sdf_weights=weights[..., :-1],

@@ -61,9 +61,12 @@ pretrain on the env-sphere set, ``render/sphere.py``; no grid):
 
 A step does not block the host: the finite check, the counters and the
 mean-count EMA stay on the device, and the host reads the EMA once, when an
-epoch chooses its K.  Only the grid refresh may synchronise.  A sphere-mode
-step has neither, and never synchronises.  An epoch of
-:meth:`Trainer.train_one_epoch` adds one read, of its averaged metrics.
+epoch chooses its K.  Only the grid refresh may synchronise, and, in an
+epoch whose fill (that reading over K) is under :data:`PACK_FILL`, each
+render, which reads its filled-slot count once to pack its samples
+(:meth:`Trainer.packs`).  A sphere-mode step has none of these, and never
+synchronises.  An epoch of :meth:`Trainer.train_one_epoch` adds one read,
+of its averaged metrics.
 
 :meth:`Trainer.load_checkpoint` reads the JAX package's checkpoints (a
 pickle of numpy arrays and optax's state tuples, read through an allow-list
@@ -143,6 +146,14 @@ EMA_DECAY = 0.95
 ERROR_MAP_CELLS = 128 * 128
 SPHERE_STEPS, SPHERE_STEP_SIZE = 12, 0.002       # the sphere shell (trainer.py:362-368)
 ENV_MODULES = ("env_net", "env_nets", "renv_net")
+# a training render packs its samples where the epoch's mean count fills
+# less than this share of the K slots a ray has (render/scene.py).  On an
+# H100 a packed step costs about its fill of the dense step's device time,
+# plus 0.35% at full fill (hash_train: 1.0035 at 0.9966, 0.480 at 0.498;
+# shiny3_indir_train 0.407 at 0.417), so the two cross near 0.99; below
+# 0.9 the device saves a tenth of a step or more, which covers the pack's
+# host work (one read and ~3.5 ms a render where the host sets the pace)
+PACK_FILL = 0.9
 
 
 def frozen_modules(opt: Options, names=()) -> frozenset:
@@ -352,7 +363,7 @@ class Trainer:
         # running mean of samples per ray (< 0: none yet), f64 on the device
         # so that it equals the reference's host EMA in Python floats
         self.mean_count = torch.full((), -1.0, dtype=torch.float64, device=self.device)
-        self.host_mean_count = -1.0      # its value at the last epoch's end
+        self.host_mean_count = -1.0      # its value at the host's last read of it
         self._sched: Optional[StepSchedule] = None
         self._K = 0
         self._order: list = []
@@ -509,7 +520,7 @@ class Trainer:
             else min(sched.max_steps, 1024)
         if mean_count is None:
             with obs.host_sync():                        # the epoch's one read
-                mean_count = float(self.mean_count)
+                mean_count = self.host_mean_count = float(self.mean_count)
         est = cap if mean_count <= 0 else int(mean_count * 1.5) + 8
         # floor: a hard-pruned grid must not starve the thin surface shell
         floor = min(max(16, self.opt.min_samples_budget), max(cap, 16))
@@ -625,9 +636,29 @@ class Trainer:
         """Whether the next :meth:`train_step` may block the host: the first
         step (it copies the dataset to the device) and, in scene mode, the
         first step of an epoch (it reads the mean count to choose K) and a
-        grid-refresh step."""
+        grid-refresh step.  A packing render's read of its filled count is
+        not named here: :meth:`step_pack_reads` counts those."""
         return self._images is None or (
             self.use_grid and (not self._order or self._refreshes_grid()))
+
+    def step_pack_reads(self) -> int:
+        """The host reads the next :meth:`train_step` makes to pack its
+        renders, each counted as ``host_sync``: one a render that packs
+        (:meth:`packs`), three under the indirect pass; 0 where the step
+        renders dense.  Meant for a step :meth:`step_may_sync` does not name
+        (the epoch's schedule is known then)."""
+        sched = self._sched
+        if sched is None or not self.use_grid or sched.error_bound or not self.packs(sched.flags):
+            return 0
+        return 3 if sched.indir_ref else 1
+
+    def packs(self, flags) -> bool:
+        """Whether a training render of the epoch packs its samples: the
+        epoch's fill, the mean count last read over K, is under
+        :data:`PACK_FILL`, and no loss reads an empty slot (Cauchy's mean
+        runs over all N x K; the other terms mask the empty slots out)."""
+        return (self._K > 0 and 0.0 <= self.host_mean_count < PACK_FILL * self._K
+                and not flags.use_cauchy_loss)
 
     def _beta_capped(self) -> bool:
         cfg = self.cfg
@@ -697,7 +728,7 @@ class Trainer:
             with_loss_aux=(flags.use_relsdf_loss or flags.use_backsdf_loss
                            or flags.use_orientation_loss or flags.use_dist_bound
                            or flags.use_entropy_loss),
-            use_bg_net=cfg.bg_radius > 0)
+            use_bg_net=cfg.bg_radius > 0, pack=self.packs(flags))
         laplace = cfg.use_sdf and not cfg.use_neus_sdf
         # the epoch's cap as a device tensor (a fill, no host-to-device copy)
         beta_cap = (torch.full((), w["_beta_cap"], device=self.device)

@@ -371,11 +371,17 @@ def test_cpu_pair_records_no_span_and_no_path_counter():
 
 
 def test_step_indices_pattern():
-    i0 = cp_rows_cases.step_indices(213, n=64 * 32, generator=torch.Generator().manual_seed(0))
-    per_ray = i0.reshape(-1, 32)
-    assert int(i0.min()) >= 0 and int(i0.max()) <= 211
-    assert (per_ray[:, 4:] == 106).all()
-    assert float((i0 == 106).double().mean()) >= 28 / 32
+    """The packed step's points: the samples at uniform rows, then the
+    padding up to a multiple of the pack's rows in one run at the row of
+    0.5."""
+    from envidr_tpu_torch.ops.marching import PACK_ROWS
+    i0 = cp_rows_cases.step_indices(213, n=4096, filled=4000,
+                                    generator=torch.Generator().manual_seed(0))
+    assert i0.shape == (4096,) and int(i0.min()) >= 0 and int(i0.max()) <= 211
+    assert (i0[4000:] == 106).all()
+    assert float((i0[:4000] == 106).double().mean()) < 0.05
+    assert cp_rows_cases.PACK_ROWS == PACK_ROWS
+    assert cp_rows_cases.N % PACK_ROWS == 0 and 0 <= cp_rows_cases.N - cp_rows_cases.FILLED < PACK_ROWS
 
 
 @pytest.fixture

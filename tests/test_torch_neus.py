@@ -13,7 +13,11 @@ sensitive to those roundings that the default-jitted and the op-by-op
 (``jax.disable_jit``) JAX steps differ by 2-46% of each leaf's max (encoder
 0.458, sdf_net 0.172, env_net 0.094, color_net 0.063, diffuse_net 0.021;
 tests/cp_readings.py).  With excess precision off the JAX step rounds where
-the op-by-op step and the port round, in a fifth of the op-by-op time."""
+the op-by-op step and the port round, in a fifth of the op-by-op time.
+A third run, in f32 on a sparser grid (8% of the cells occupied, so that
+a third of the slots fill), packs the port's render (the encode, the
+networks and their backward on the march's filled slots alone) and is held
+against the dense JAX step on that grid to the same tolerances."""
 
 import copy
 import os
@@ -32,10 +36,12 @@ from envidr_tpu.ops import density as jdens
 from envidr_tpu.render.scene import SceneRenderOptions, render_scene
 from envidr_tpu.train.losses import compute_losses
 from envidr_tpu.train.schedules import resolve as jax_resolve
+from envidr_tpu_torch import obs
 from envidr_tpu_torch.config import load_options as torch_load, network_config as torch_netcfg
 from envidr_tpu_torch.io.jax_params import load_jax_params
 from envidr_tpu_torch.models.network import NeRFNetwork
 from envidr_tpu_torch.ops import density as tdens
+from envidr_tpu_torch.ops.marching import PACK_ROWS
 from envidr_tpu_torch.train.schedules import resolve
 from envidr_tpu_torch.train.trainer import Trainer
 from test_torch_helpers import (CP_SMALL, ROOT, camera_rays, export_jax_layout,
@@ -113,21 +119,24 @@ def test_bridge_carries_cp_tables_and_variance():
         load_jax_params(NeRFNetwork(tcfg), bad)
 
 
-@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+@pytest.fixture(scope="module", params=["float32", "bfloat16", "float32_packed"])
 def cp_step(request):
-    return cp_step_case(request.param)
+    dtype, _, packed = request.param.partition("_")
+    return cp_step_case(dtype, pack=bool(packed))
 
 
-def cp_step_case(dtype: str):
+def cp_step_case(dtype: str, pack: bool = False):
     """The step with the CP encoder in ``dtype``: the JAX step jitted in f32,
-    compiled keeping its roundings in bf16."""
+    compiled keeping its roundings in bf16.  With ``pack`` the port's render
+    packs its samples (``Trainer.packs`` forced on): the per-sample work
+    runs on the march's filled slots alone, against JAX's dense step."""
     if dtype == "float32":
         with f32_cp_encoder():
-            return _cp_step(jax.jit)
-    return _cp_step(jit_keeping_bf16)
+            return _cp_step(jax.jit, pack)
+    return _cp_step(jit_keeping_bf16, pack)
 
 
-def _cp_step(jit):
+def _cp_step(jit, pack=False):
     (jopt, jcfg, params), (topt, tcfg, net) = _cp_model(seed=5)
     o, d = camera_rays(64, seed=4)
     rng = np.random.default_rng(5)
@@ -136,7 +145,9 @@ def _cp_step(jit):
     bg = np.ones((64, 3), np.float32)
     gt = (pix[:, :3] * pix[:, 3:] + bg * (1.0 - pix[:, 3:])).astype(np.float32)
     alpha = pix[:, 3].copy()
-    bits = np.random.default_rng(6).uniform(size=(1, 128 ** 3)) < 0.6
+    # packed: 8% of the cells occupied, so that 1/3 of the slots fill (at 60%
+    # every slot does)
+    bits = np.random.default_rng(6).uniform(size=(1, 128 ** 3)) < (0.08 if pack else 0.6)
     jsched = jax_resolve(jopt, 1, GLOBAL_STEP)
     ropts = SceneRenderOptions(max_steps=jsched.max_steps, num_samples=K,
                                early_stop_steps=jsched.early_stop_steps,
@@ -157,9 +168,16 @@ def _cp_step(jit):
     (jl, jterms), jgrads = jit(jax.value_and_grad(loss_fn, has_aux=True))(jp)
     tr = Trainer(topt, tcfg, device="cpu", net=net)
     tr.grid = tr.grid._replace(bitfield=torch.from_numpy(bits))
+    tr.packs = lambda flags: pack
     sched = resolve(topt, 1, GLOBAL_STEP)
+    rows = obs.COUNTERS.get("march.pack.rows", 0)
     tl, out, tterms = tr.forward_loss(*(torch.from_numpy(a) for a in (o, d, gt, bg, alpha)),
                                       K=K, sched=sched)
+    filled = int(out["mask"].sum())
+    assert obs.COUNTERS.get("march.pack.rows", 0) - rows == (
+        -(-filled // PACK_ROWS) * PACK_ROWS if pack else 0)
+    if pack:        # empty slots left out
+        assert 0 < filled < out["mask"].numel()
     tl.backward()
     return dict(jl=float(jl), jterms=jterms, jgrads=jax.tree.map(np.asarray, jgrads), tr=tr,
                 tl=float(tl.detach()), tterms=tterms, out=out, ratio=sched.cos_anneal_ratio,

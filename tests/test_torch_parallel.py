@@ -7,6 +7,7 @@ render, and the pieces: ``shard_rays`` / ``global_from_local``,
 process has a ``communicate(timeout=...)`` of its own, and all are killed
 when one overruns (``tiny_step.run_group``)."""
 
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -111,29 +112,57 @@ def test_two_process_step_matches_one_process_step(step_runs):
         assert d.max() <= 2.0 * lr * (1 + 1e-6), name
 
 
-def test_one_process_tiny_step_matches_jax():
+@functools.lru_cache(maxsize=1)
+def _jax_tiny_step():
     """JAX's ``run_tiny_step(None, 1)`` (jitted; the CP encoder in f32, trap
-    C3) against the port's step on its draws: the same initial parameters,
-    its grid, its rays, background and march noise."""
+    C3): its metrics, its new state and its initial parameters."""
     from envidr_tpu.config import network_config as jax_netcfg
-    from envidr_tpu.geometry.rays import sampled_rays as jax_sampled_rays
     from envidr_tpu.parallel.tiny_step import run_tiny_step as jax_run_tiny_step
     from envidr_tpu.parallel.tiny_step import tiny_options as jax_tiny_options
     from envidr_tpu.train.trainer import Trainer as JaxTrainer
-    from envidr_tpu_torch.config import network_config
-    from envidr_tpu_torch.io.jax_params import load_jax_params, module_tree
-    from envidr_tpu_torch.models.network import NeRFNetwork
-    from envidr_tpu_torch.ops.grid import OccupancyGrid
-    from envidr_tpu_torch.train.schedules import resolve
-    from envidr_tpu_torch.train.trainer import Trainer
 
     with f32_cp_encoder():
         metrics, new_state, _, _ = jax_run_tiny_step(None, 1)
         jopt = jax_tiny_options(1)
         params0 = jax.tree.map(np.asarray, JaxTrainer(jopt, jax_netcfg(jopt)).state["params"])
+    return metrics, new_state, params0
+
+
+def test_one_process_tiny_step_matches_jax():
+    """JAX's ``run_tiny_step(None, 1)`` (jitted; the CP encoder in f32, trap
+    C3) against the port's step on its draws: the same initial parameters,
+    its grid, its rays, background and march noise."""
+    _tiny_step_against_jax(pack=False)
+
+
+def test_one_process_packed_tiny_step_matches_jax():
+    """The same step with its render packed (``Trainer.packs`` forced on: a
+    fresh trainer has no fill to read yet): its 128 slots are all filled, so
+    the encode, the networks and their backward run on them and 3968
+    padding rows, and the loss, its terms, the updated parameters and
+    Adam's first moments must match JAX's dense step within the same
+    tolerances.  ``test_torch_neus.py``'s packed CP step leaves empty slots
+    out."""
+    _tiny_step_against_jax(pack=True)
+
+
+def _tiny_step_against_jax(pack: bool):
+    from envidr_tpu.geometry.rays import sampled_rays as jax_sampled_rays
+    from envidr_tpu_torch import obs
+    from envidr_tpu_torch.config import network_config
+    from envidr_tpu_torch.io.jax_params import load_jax_params, module_tree
+    from envidr_tpu_torch.models.network import NeRFNetwork
+    from envidr_tpu_torch.ops.grid import OccupancyGrid
+    from envidr_tpu_torch.ops.marching import PACK_ROWS
+    from envidr_tpu_torch.train.schedules import resolve
+    from envidr_tpu_torch.train.trainer import Trainer
+
+    metrics, new_state, params0 = _jax_tiny_step()
+    with f32_cp_encoder():
         opt = tiny_options(1)
         cfg = network_config(opt)
         tr = Trainer(opt, cfg, device="cpu", net=load_jax_params(NeRFNetwork(cfg), params0))
+    tr.packs = lambda flags: pack
     g = jax.tree.map(np.asarray, new_state["grid"])        # the step leaves the grid
     tr.grid = OccupancyGrid(torch.from_numpy(g.density), torch.from_numpy(g.bitfield),
                             torch.tensor(float(g.mean_density)), int(g.iter_density))
@@ -150,10 +179,14 @@ def test_one_process_tiny_step_matches_jax():
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32))
 
-    loss, _, terms = tr.forward_loss(
+    before = dict(obs.COUNTERS)
+    loss, out, terms = tr.forward_loss(
         t(rays["rays_o"][0]), t(rays["rays_d"][0]), t(gt), t(bg), t(pix[:, 3]),
         K=tr.sample_budget(sched), sched=sched,
         noise=t(jax.random.uniform(k_perturb, (N,))))
+    packed = obs.COUNTERS.get("march.pack.rows", 0) - before.get("march.pack.rows", 0)
+    assert int(out["mask"].sum()) == out["mask"].numel() == 128
+    assert packed == (PACK_ROWS if pack else 0)
     loss.backward()
     tr._apply_update()
     assert float(loss) == pytest.approx(float(metrics["loss"]), rel=JAX_LOSS_RTOL)
